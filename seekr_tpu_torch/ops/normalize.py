@@ -1,0 +1,86 @@
+"""Normalization of count matrices.
+
+Port of ``seekr_tpu/ops/normalize.py:28-93``, in the reference pipeline's order
+(seekr/kmer_counts.py:194-209):
+
+    raw counts-per-kb
+    -> (Log2.pre)  counts = log2(counts + 1)
+    -> center      counts -= mean  (column mean if computed)
+    -> standardize counts /= std   (column POPULATION std of the centered matrix)
+    -> (Log2.post) counts += |global min|; counts = log2(counts + 1)
+
+A zero-std column gives NaN or inf, and Log2.post's global ``min`` then spreads
+NaN over the whole matrix, as in seekr_tpu and the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from seekr_tpu_torch.ops.math import accurate_log2
+
+LOG2_PRE = "Log2.pre"
+LOG2_POST = "Log2.post"
+LOG2_NONE = "Log2.none"
+LOG2_MODES = (LOG2_PRE, LOG2_POST, LOG2_NONE)
+
+
+def check_log2_mode(log2_mode: str) -> None:
+    if log2_mode not in LOG2_MODES:
+        raise ValueError("log2 must be one of ['Log2.pre', 'Log2.post', 'Log2.none']")
+
+
+def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str):
+    """The normalize chain on a device tensor.
+
+    ``mean``/``std``: ``None`` computes the column statistic, ``False`` skips the
+    step, a tensor is used as given (flat ``[4^k]``).  Returns
+    (normalized, mean_or_None, std_or_None).  ``counts`` is never modified; the
+    chain's own temporaries are updated in place to keep one [m, 4^k] buffer.
+    """
+    check_log2_mode(log2_mode)
+    counts = counts.to(torch.float32)
+    owned = False  # True once `counts` is a buffer of this function's own
+    if log2_mode == LOG2_PRE:
+        counts, owned = accurate_log2(counts + 1.0), True
+
+    if mean is not False:
+        mean = counts.mean(dim=0) if mean is None else mean.to(torch.float32)
+        counts, owned = (counts.sub_(mean) if owned else counts - mean), True
+    else:
+        mean = None
+
+    if std is not False:
+        # population std (correction=0), as jnp.std and numpy's default
+        std = counts.std(dim=0, correction=0) if std is None else std.to(torch.float32)
+        counts, owned = (counts.div_(std) if owned else counts / std), True
+    else:
+        std = None
+
+    if log2_mode == LOG2_POST:
+        shift = counts.min().abs()  # NaN-propagating, like jnp.min
+        counts = accurate_log2(counts + shift + 1.0)
+    return counts, mean, std
+
+
+def normalize_counts(counts: torch.Tensor, *, log2_mode: str = LOG2_POST,
+                     mean=True, std=True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Normalize a raw count matrix (a tensor; the result stays on its device).
+
+    ``mean``/``std`` follow the reference contract: ``True`` computes the column
+    statistic from the data, ``False`` skips the step, an array (numpy or tensor)
+    is the provided vector.
+
+    Returns (normalized_counts, mean_or_None, std_or_None).
+    """
+    def arg(v):
+        if v is True:
+            return None
+        if v is False:
+            return False
+        return torch.as_tensor(v, device=counts.device)
+
+    return normalize_graph(counts, arg(mean), arg(std), log2_mode)
