@@ -10,8 +10,10 @@ and runs these phases, each a function of (device, scale, state):
 1. environment: torch and CUDA versions, ``nvcc --version``, the card's name and
    power limit, and the kernel build (with ptxas' register and spill lines);
 2. every count kernel against its plain PyTorch version (``count_torch``) at
-   k = 1..10, with N bases, short, zero-length and padded rows, scaled and raw,
-   flat and unflattened: bitwise equal (``torch.equal``);
+   k = 1..12 and 15, with N bases, short, zero-length and padded rows, and at
+   k >= 8 a row whose windows hit both edges of the hi-blocked kernel's slices,
+   scaled and raw, flat and unflattened; and at k = 9 two rows of one repeated
+   code whose bins pass 65,535: bitwise equal (``torch.equal``);
 3. the main path through ``SeekrPipeline(k=6, log2="Log2.post").forward`` on a
    synthetic stand-in of the reference's default background corpus (12,996
    GENCODE vM25 lncRNAs: here 13,000 transcripts with lognormal lengths, median
@@ -21,8 +23,10 @@ and runs these phases, each a function of (device, scale, state):
    (the blocked path): exactly symmetric, within 1e-4 of phase 3; a FASTA with
    two transcripts past the long-sequence threshold against the numpy oracle;
    and ``KmerCounter(k=9)`` (the large-k kernel) against the numpy oracle;
-5. each kernel at its main-path shapes: its time, its bound, the plain version's
-   time and a library yardstick.
+5. each kernel at its main-path shapes: its time (and per launch), its bound
+   (and the share of it reached), the plain version's time and a library
+   yardstick; for the hi-blocked kernel also a write-only pass over the same
+   output, and its time and bound at phase 2's widest k.
 
 Launch counts are set to 0 just before phases 3 and 4 drive the main path and
 read just after; the run fails if a kernel of the path was not launched.  The
@@ -48,10 +52,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 PIPELINE_K = 6
 LARGE_K = 9
+WIDE_K_CASES = ((11, 8), (12, 8), (15, 1))  # (k, rows) of the widest comparisons
+ONE_CODE_WINDOWS = (65_536, 65_535)  # windows of the two one-code rows at k = LARGE_K
 SOURCE = "seekr_tpu_torch/csrc/count_kmers.cu"
 REPLACES = {  # kernel -> the TPU kernel body it replaces
     "count_kmers_smem": "seekr_tpu/ops/count_pallas.py:67",
-    "count_kmers_gmem": "seekr_tpu/ops/count_pallas.py:125",
+    "count_kmers_hiblocked": "seekr_tpu/ops/count_pallas.py:125",
 }
 DIGIT2CHAR = np.frombuffer(b"AGTCN", dtype=np.uint8)
 
@@ -133,17 +139,52 @@ def write_fasta_file(path, seqs):
     write_fasta(str(path), [f"t{i}" for i in range(len(seqs))], seqs)
 
 
+def slice_edge_row(rng, k: int, lpad: int):
+    """A full row of digits whose first windows have the codes at both edges of
+    the hi-blocked kernel's slices of S bins (``hiblock_plan``): 0, S - 1, S,
+    2S - 1, 2S, the last slice's first bin and its neighbour, and the row's last
+    bin, each followed by an N; random digits after them."""
+    from seekr_tpu_torch.ops.count_cuda import hiblock_plan
+
+    n_bins = 1 << (2 * k)
+    s = hiblock_plan(k)[0]
+    codes = [0, s - 1, s, 2 * s - 1, 2 * s, n_bins - s - 1, n_bins - s, n_bins - 1]
+    row = rng.integers(0, 4, size=lpad, dtype=np.int8)
+    for i, code in enumerate(codes):
+        pos = i * (k + 1)
+        if pos + k >= lpad:
+            break
+        row[pos:pos + k] = [(code >> (2 * (k - 1 - j))) & 3 for j in range(k)]
+        row[pos + k] = 4
+    return row
+
+
+def one_code_case(k: int):
+    """Two rows whose windows all share one code, so one bin counts every window:
+    all A (code 0, the first slice) with ``ONE_CODE_WINDOWS[0]`` windows, and all
+    C (code 4^k - 1, the last slice) with ``ONE_CODE_WINDOWS[1]``."""
+    lengths = np.array([n + k - 1 for n in ONE_CODE_WINDOWS], dtype=np.int32)
+    bases = np.full((2, int(lengths.max())), 3, dtype=np.int8)  # 3 = C
+    bases[0] = 0  # A
+    bases[1, lengths[1]:] = 4
+    return bases, lengths
+
+
 def kernel_case(rng, m: int, lmax: int, k: int):
     """Count-kernel inputs with every edge: N bases, a zero-length row, a row
-    shorter than k, a full-width row, an all-N row, padded ragged rows."""
+    shorter than k, a full-width row, an all-N row, padded ragged rows, and at
+    k >= 8 a last row of slice-edge windows (``slice_edge_row``)."""
+    from seekr_tpu_torch.ops.count_cuda import SMEM_MAX_K
+
     lengths = rng.integers(min(512, lmax // 2), lmax + 1, size=m).astype(np.int32)
     bases = rng.integers(0, 4, size=(m, lmax), dtype=np.int8)
     bases[rng.random((m, lmax)) < 0.01] = 4
-    lengths[0] = 0
-    lengths[1] = k - 1
-    lengths[2] = lmax
-    bases[3, :] = 4
+    lengths[:3] = (0, k - 1, lmax)[:m]
+    bases[3:4, :] = 4
     bases[np.arange(lmax)[None, :] >= lengths[:, None]] = 4
+    if k > SMEM_MAX_K:
+        bases[-1] = slice_edge_row(rng, k, lmax)
+        lengths[-1] = lmax
     return bases, lengths
 
 
@@ -185,26 +226,31 @@ def phase_kernels(device, scale, state):
     from seekr_tpu_torch.ops.count_cuda import count_kmers_cuda, kernel_for
 
     rng = np.random.default_rng(state["seed"] + 1)
-    for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10):
-        m = scale.kernel_m if k <= 8 else scale.kernel_m_big
-        b, n = kernel_case(rng, m, scale.kernel_lmax, k)
+    cases = ([(k, kernel_case(rng, scale.kernel_m, scale.kernel_lmax, k)) for k in range(1, 9)]
+             + [(k, kernel_case(rng, scale.kernel_m_big, scale.kernel_lmax, k))
+                for k in (9, 10)]
+             + [(k, kernel_case(rng, m, scale.kernel_lmax, k)) for k, m in WIDE_K_CASES]
+             + [(LARGE_K, one_code_case(LARGE_K))])
+    for k, (b, n) in cases:
         bt = torch.as_tensor(b, device=device)
         nt = torch.as_tensor(n, device=device)
+        # a 4 GB output row at the top k: flat only
+        flats = (True,) if k == 15 else (True, False)
         worst = 0.0
         for scaled in (True, False):
-            for flat in (True, False):
-                got = count_kmers_cuda(bt, nt, k, scaled=scaled, flat=flat)
+            for flat in flats:
                 want = count_torch(bt, nt, k, scaled=scaled, flat=flat)
+                got = count_kmers_cuda(bt, nt, k, scaled=scaled, flat=flat)
                 sync(device)
                 if got.shape != want.shape or not torch.equal(got, want):
                     raise AssertionError(
                         f"{kernel_for(k)} differs from count_torch at k={k} "
-                        f"scaled={scaled} flat={flat}: max abs "
+                        f"{tuple(b.shape)} scaled={scaled} flat={flat}: max abs "
                         f"{(got - want).abs().max().item()}")
                 worst = max(worst, (got - want).abs().max().item())
                 del got, want
         record_err(state, kernel_for(k), worst)
-        log(f"k={k:2d} {kernel_for(k)} m={m} Lpad={scale.kernel_lmax}: torch.equal, "
+        log(f"k={k:2d} {kernel_for(k)} [m, Lpad]={list(b.shape)}: torch.equal, "
             f"max abs diff {worst}")
 
 
@@ -373,26 +419,18 @@ def _offset_codes(b, n, k):
     bincount yardstick), computed once, outside its timing."""
     import torch
 
-    m, lpad = b.shape
-    w = lpad - k + 1
-    d = b.to(torch.int64)
-    bad = d >= 4
-    d = d.masked_fill(bad, 0)
-    code = torch.zeros((m, w), dtype=torch.int64, device=b.device)
-    invalid = torch.zeros((m, w), dtype=torch.bool, device=b.device)
-    for j in range(k):
-        code = code * 4 + d[:, j:j + w]
-        invalid |= bad[:, j:j + w]
-    valid = (torch.arange(w, device=b.device)[None, :] < (n.to(torch.int64) - (k - 1))[:, None])
-    code += torch.arange(m, device=b.device)[:, None] * (1 << (2 * k))
-    return code[valid & ~invalid]
+    from seekr_tpu_torch.ops.count import window_codes
+
+    code, valid = window_codes(b, n, k)
+    code += torch.arange(b.shape[0], device=b.device)[:, None] * (1 << (2 * k))
+    return code[valid]
 
 
 def phase_timing(device, scale, state):
     """Each kernel at its main-path shapes: time, bound, plain and library times.
 
     count_kmers_smem: the pipeline's one [m, 4096] launch at k = 6.
-    count_kmers_gmem: the k = 9 counter run's bucket launches, summed.
+    count_kmers_hiblocked: the k = 9 counter run's bucket launches, summed.
     Also holds each kernel against count_torch at those shapes (and at the
     k = 6 counter's buckets).  The yardstick ``library_ms`` is one
     ``torch.bincount`` over precomputed row-offset window codes: the raw
@@ -417,7 +455,7 @@ def phase_timing(device, scale, state):
     work = {
         "count_kmers_smem": (PIPELINE_K, [(torch.as_tensor(bases, device=device),
                                            torch.as_tensor(lengths, device=device))]),
-        "count_kmers_gmem": (LARGE_K, shapes_of(state["large_k_seqs"], LARGE_K)),
+        "count_kmers_hiblocked": (LARGE_K, shapes_of(state["large_k_seqs"], LARGE_K)),
     }
     for b, n in shapes_of(state["seqs"], PIPELINE_K):  # the k = 6 counter's buckets
         got, want = count_kmers_cuda(b, n, PIPELINE_K), count_torch(b, n, PIPELINE_K)
@@ -434,8 +472,9 @@ def phase_timing(device, scale, state):
             err = max(err, (got - want).abs().max().item())
             del got, want
         record_err(state, name, err)
-        ms = sum(cuda_ms(lambda b=b, n=n: count_kmers_cuda(b, n, k), scale.reps)
-                 for b, n in inputs)
+        ms_by_launch = [cuda_ms(lambda b=b, n=n: count_kmers_cuda(b, n, k), scale.reps)
+                        for b, n in inputs]
+        ms = sum(ms_by_launch)
         plain_ms = sum(cuda_ms(lambda b=b, n=n: count_torch(b, n, k), scale.reps)
                        for b, n in inputs)
         library_ms = 0.0
@@ -447,6 +486,10 @@ def phase_timing(device, scale, state):
             del codes
         nbytes = sum(_needed_bytes(n.cpu().numpy(), b.shape[1], k) for b, n in inputs)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{name}: {nbytes / (ms / 1e3) / 1e9:.1f} GB/s of the bytes it must move, "
+            f"{bound_ms / ms:.1%} of its bound; ms by launch {ms_by_launch}")
+        if name == "count_kmers_hiblocked":
+            hiblocked_detail(inputs, k, scale, device, state)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
             "launches": state["launches"][name],
@@ -459,6 +502,29 @@ def phase_timing(device, scale, state):
             f"({nbytes} bytes at 3.35 TB/s), plain {plain_ms:.3f} ms, "
             f"bincount yardstick {library_ms:.3f} ms")
     state["kernels"] = rows
+
+
+def hiblocked_detail(inputs, k, scale, device, state):
+    """Where count_kmers_hiblocked's time goes: against a write-only pass over
+    the same output (``zero_``), and its time against its bound at phase 2's
+    widest cases."""
+    import torch
+
+    from seekr_tpu_torch.ops.count_cuda import count_kmers_cuda
+
+    outs = [torch.empty((b.shape[0], 1 << (2 * k)), device=device) for b, _ in inputs]
+    out = {"phase": "timing", "kernel": "count_kmers_hiblocked", "k": k,
+           "write_only_ms": sum(cuda_ms(o.zero_, scale.reps) for o in outs)}
+    del outs
+    rng = np.random.default_rng(state["seed"] + 3)
+    for wide_k, m in WIDE_K_CASES:
+        b, n = kernel_case(rng, m, scale.kernel_lmax, wide_k)
+        bt, nt = torch.as_tensor(b, device=device), torch.as_tensor(n, device=device)
+        out[f"k{wide_k}_m{m}_ms"] = cuda_ms(
+            lambda b=bt, n=nt, k=wide_k: count_kmers_cuda(b, n, k), scale.reps)
+        out[f"k{wide_k}_m{m}_bound_ms"] = (_needed_bytes(n, b.shape[1], wide_k)
+                                           / HBM_BYTES_PER_S * 1e3)
+    log(json.dumps(out))
 
 
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing)

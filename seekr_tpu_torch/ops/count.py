@@ -36,21 +36,14 @@ def _scale(counts: torch.Tensor, lengths: torch.Tensor, k: int) -> torch.Tensor:
     return counts * scale[:, None]
 
 
-def count_torch(bases: torch.Tensor, lengths: torch.Tensor, k: int,
-                scaled: bool = True, flat: bool = True) -> torch.Tensor:
-    """The plain version: [m, Lpad] int digits (>=4 invalid/pad) + [m] lengths.
-
-    Returns [m, 4**k] float32 counts: per kb of windows when ``scaled``, raw
-    integer window counts otherwise; ``flat=False`` returns an [m, n_hi, n_lo]
-    view.  The contract of ``seekr_tpu/ops/count.py::_count_impl``, computed as
-    window codes -> one ``bincount`` over row-offset codes -> scale.  Negative
-    digits are invalid too.
-    """
+def window_codes(bases: torch.Tensor, lengths: torch.Tensor,
+                 k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[m, Lpad - k + 1] int64 codes of every window start, and the mask of the
+    windows that count: inside the sequence, with no invalid digit (>= 4 or < 0)."""
     m, lpad = bases.shape
     if lpad < k:
         raise ValueError("padded length must be >= k")
     w = lpad - k + 1
-    n_bins = 1 << (2 * k)
     digits = bases.to(torch.int64)
     bad_digit = (digits < 0) | (digits >= 4)
     digits = digits.masked_fill(bad_digit, 0)
@@ -61,7 +54,22 @@ def count_torch(bases: torch.Tensor, lengths: torch.Tensor, k: int,
         bad |= bad_digit[:, j:j + w]
     n_windows = lengths.to(torch.int64) - (k - 1)
     pos = torch.arange(w, device=bases.device)
-    valid = (pos[None, :] < n_windows[:, None]) & ~bad
+    return code, (pos[None, :] < n_windows[:, None]) & ~bad
+
+
+def count_torch(bases: torch.Tensor, lengths: torch.Tensor, k: int,
+                scaled: bool = True, flat: bool = True) -> torch.Tensor:
+    """The plain version: [m, Lpad] int digits (>=4 invalid/pad) + [m] lengths.
+
+    Returns [m, 4**k] float32 counts: per kb of windows when ``scaled``, raw
+    integer window counts otherwise; ``flat=False`` returns an [m, n_hi, n_lo]
+    view.  The contract of ``seekr_tpu/ops/count.py::_count_impl``, computed as
+    window codes -> one ``bincount`` over row-offset codes -> scale.  Negative
+    digits are invalid too.
+    """
+    m = bases.shape[0]
+    n_bins = 1 << (2 * k)
+    code, valid = window_codes(bases, lengths, k)
     row_offset = torch.arange(m, device=bases.device)[:, None] * n_bins
     hist = torch.bincount((code + row_offset)[valid], minlength=m * n_bins)
     counts = hist.view(m, n_bins).to(torch.float32)

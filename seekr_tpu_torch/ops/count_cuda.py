@@ -5,8 +5,9 @@ Two kernels cover every k the launcher takes, 1 <= k <= 15:
 
 * ``count_kmers_smem`` (k <= 7), for the TPU's ``_kernel``: a shared-memory
   histogram per row;
-* ``count_kmers_gmem`` (k >= 8), for ``_kernel_hiblocked`` and ``_kernel`` at
-  k = 8: the histogram in global memory, then an in-place scale pass.
+* ``count_kmers_hiblocked`` (k >= 8), for ``_kernel_hiblocked`` and ``_kernel``
+  at k = 8: each block counts one slice of a row's bins in shared memory and
+  writes it once.  ``hiblock_plan`` sizes the slices.
 
 The TPU launcher's padding of rows to its row tile and of columns to its chunk,
 and its int8 -> int32 cast, are TPU tiling workarounds: the kernels read int8
@@ -25,8 +26,9 @@ from seekr_tpu_torch.utils.build import cuda_error_string, load_library
 
 SMEM_MAX_K = 7   # 4^7 int32 bins = 64 KB of shared memory; 4^8 is over 227 KB
 MAX_K = 15       # window codes stay below 2^30
+HIBLOCK_SLICE_BINS = 1 << 14  # int32 bins of one slice: 64 KB, three blocks on an SM
 
-KERNELS = ("count_kmers_smem", "count_kmers_gmem")
+KERNELS = ("count_kmers_smem", "count_kmers_hiblocked")
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -42,7 +44,18 @@ def split_hi_lo(k: int) -> tuple[int, int]:
 
 
 def kernel_for(k: int) -> str:
-    return "count_kmers_smem" if k <= SMEM_MAX_K else "count_kmers_gmem"
+    return "count_kmers_smem" if k <= SMEM_MAX_K else "count_kmers_hiblocked"
+
+
+def hiblock_plan(k: int) -> tuple[int, int]:
+    """(slice_bins, n_slices) of ``count_kmers_hiblocked``: a row's 4^k bins cut
+    into ``n_slices`` slices of ``slice_bins`` contiguous int32 bins, one slice
+    per block in 64 KB of shared memory."""
+    if not SMEM_MAX_K < k <= MAX_K:
+        raise ValueError(f"the hi-blocked kernel takes {SMEM_MAX_K} < k <= {MAX_K}, got {k}")
+    n_bins = 1 << (2 * k)
+    slice_bins = min(HIBLOCK_SLICE_BINS, n_bins)
+    return slice_bins, n_bins // slice_bins
 
 
 def _check(bases: torch.Tensor, lengths: torch.Tensor, k: int) -> None:
@@ -72,23 +85,18 @@ def count_kmers_cuda(bases: torch.Tensor, lengths: torch.Tensor, k: int,
     """
     _check(bases, lengths, k)
     m, lpad = bases.shape
-    n_bins = 1 << (2 * k)
     name = kernel_for(k)
-    if name == "count_kmers_smem":
-        out = torch.empty((m, n_bins), dtype=torch.float32, device=bases.device)
-    else:
-        # the kernel counts into this zeroed buffer as int32, then rewrites each
-        # bin in place as float32: no separate m * 4^k scratch
-        out = torch.zeros((m, n_bins), dtype=torch.int32, device=bases.device)
+    # every kernel writes each output byte once: no zeroing
+    out = torch.empty((m, 1 << (2 * k)), dtype=torch.float32, device=bases.device)
     if m:
         lib = load_library()
         stream = torch.cuda.current_stream(bases.device).cuda_stream
-        err = getattr(lib, f"seekr_{name}")(
-            bases.data_ptr(), lengths.data_ptr(), out.data_ptr(), m, lpad, k,
-            int(scaled), bases.device.index or 0, stream)
+        args = (bases.data_ptr(), lengths.data_ptr(), out.data_ptr(), m, lpad, k, int(scaled))
+        if name == "count_kmers_hiblocked":
+            args += (hiblock_plan(k)[0].bit_length() - 1,)
+        err = getattr(lib, f"seekr_{name}")(*args, bases.device.index or 0, stream)
         if err:
             raise RuntimeError(f"{name} failed to launch: CUDA error {err} "
                                f"({cuda_error_string(err)})")
         launches[name] += 1
-    out = out.view(torch.float32)
     return out if flat else out.view(m, *split_hi_lo(k))

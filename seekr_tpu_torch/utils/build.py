@@ -33,13 +33,18 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+# (bases, lengths, out, m, lpad, k, scaled) of the count kernels' C functions
+_COUNT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+_DEVICE_STREAM = [ctypes.c_int, ctypes.c_void_p]
+
 # (name, argtypes, restype) of every exported C function
 _SIGNATURES = [
     ("seekr_cuda_error_string", [ctypes.c_int], ctypes.c_char_p),
-    *[(name, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
-      for name in ("seekr_count_kmers_smem", "seekr_count_kmers_gmem")],
+    ("seekr_count_kmers_smem", [*_COUNT_ARGS, *_DEVICE_STREAM], ctypes.c_int),
+    # + log2 of count_cuda.hiblock_plan's slice_bins
+    ("seekr_count_kmers_hiblocked", [*_COUNT_ARGS, ctypes.c_int, *_DEVICE_STREAM],
+     ctypes.c_int),
 ]
 
 

@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,7 +27,7 @@ def test_phases_rehearse_on_cpu():
     assert state["sim"].shape == (m, m)
     assert len(state["large_k_seqs"]) == chip_smoke.TINY.large_k_m
     # no kernel runs on the CPU, and no launch is counted
-    assert state["launches"] == {"count_kmers_smem": 0, "count_kmers_gmem": 0}
+    assert state["launches"] == {"count_kmers_smem": 0, "count_kmers_hiblocked": 0}
 
 
 def test_corpus_is_seeded_and_shaped():
@@ -36,6 +37,24 @@ def test_corpus_is_seeded_and_shaped():
     assert b1.shape == (50, 4096) and b1.dtype == np.int8
     assert n1.min() >= 200 and n1.max() <= 4096
     assert (b1[np.arange(4096)[None, :] >= n1[:, None]] == 4).all()
+
+
+@pytest.mark.parametrize("k", range(8, 16))
+def test_slice_edge_row_hits_both_edges_of_every_slice_width(k):
+    from seekr_tpu_torch.ops.count import window_codes
+    from seekr_tpu_torch.ops.count_cuda import hiblock_plan
+
+    lpad = 4096
+    row = chip_smoke.slice_edge_row(np.random.default_rng(k), k, lpad)
+    code, valid = window_codes(torch.from_numpy(row[None]), torch.tensor([lpad]), k)
+    hit = set(code[valid].tolist())
+    s = hiblock_plan(k)[0]
+    assert {0, s - 1, s, 2 * s - 1, 2 * s, 4 ** k - s - 1, 4 ** k - s, 4 ** k - 1} <= hit
+
+
+def test_kernel_case_at_one_row():
+    b, n = chip_smoke.kernel_case(np.random.default_rng(0), 1, 600, 15)
+    assert b.shape == (1, 600) and n.tolist() == [600]
 
 
 def test_needed_bytes():

@@ -20,6 +20,9 @@ from seekr_tpu_torch.utils import build
 from seekr_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
 PORT_FILES = sorted((ROOT / "seekr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -80,9 +83,52 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_kernel_routing():
     assert [count_cuda.kernel_for(k) for k in (1, 6, 7, 8, 10)] == [
         "count_kmers_smem", "count_kmers_smem", "count_kmers_smem",
-        "count_kmers_gmem", "count_kmers_gmem"]
+        "count_kmers_hiblocked", "count_kmers_hiblocked"]
     assert count_cuda.split_hi_lo(6) == (32, 128)
     assert count_cuda.split_hi_lo(2) == (1, 16)
+
+
+@pytest.mark.parametrize("k", range(8, 16))
+def test_hiblock_plan_covers_every_bin_once(k):
+    n_bins = 4 ** k
+    slice_bins, n_slices = count_cuda.hiblock_plan(k)
+    # the kernel's slice of code c is c >> log2(S), its bin c & (S - 1); the C
+    # function takes 8 <= S <= 2^14 (64 KB of int32 bins)
+    assert slice_bins & (slice_bins - 1) == 0 and 8 <= slice_bins <= 1 << 14
+    assert slice_bins * n_slices == n_bins
+    if k <= 11:
+        codes = np.arange(n_bins)
+        shift = slice_bins.bit_length() - 1
+        owners = (codes >> shift) * slice_bins + (codes & (slice_bins - 1))
+        np.testing.assert_array_equal(np.bincount(owners, minlength=n_bins), 1)
+        np.testing.assert_array_equal(np.bincount(codes >> shift), slice_bins)
+
+
+def test_hiblock_plan_refuses_small_k():
+    with pytest.raises(ValueError):
+        count_cuda.hiblock_plan(count_cuda.SMEM_MAX_K)
+    with pytest.raises(ValueError):
+        count_cuda.hiblock_plan(count_cuda.MAX_K + 1)
+
+
+@pytest.mark.parametrize("lpad", [300, 1100])
+@pytest.mark.parametrize("k", [8, 9, 10])
+def test_count_slice_by_slice_equals_whole(k, lpad):
+    # the decomposition count_kmers_hiblocked relies on: each slice's histogram
+    # from the codes masked to that slice, concatenated, is the whole histogram
+    rng = np.random.default_rng(k)
+    b, n = (torch.from_numpy(a) for a in chip_smoke.kernel_case(rng, 5, lpad, k))
+    slice_bins, n_slices = count_cuda.hiblock_plan(k)
+    code, valid = count_mod.window_codes(b, n, k)
+    row = torch.arange(5)[:, None] * slice_bins
+    parts = []
+    for s in range(n_slices):
+        sel = valid & (code // slice_bins == s)
+        hist = torch.bincount((code % slice_bins + row)[sel], minlength=5 * slice_bins)
+        parts.append(hist.view(5, slice_bins))
+    raw = torch.cat(parts, dim=1).to(torch.float32)
+    assert torch.equal(raw, count_mod.count_torch(b, n, k, scaled=False))
+    assert torch.equal(count_mod._scale(raw, n, k), count_mod.count_torch(b, n, k))
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -117,6 +163,9 @@ def random_case(rng, m, L, k, device):
     lengths[0] = k - 1
     for r in range(m):
         bases[r, lengths[r]:] = 4
+    if k > count_cuda.SMEM_MAX_K:
+        bases[-1] = chip_smoke.slice_edge_row(rng, k, L)
+        lengths[-1] = L
     return torch.as_tensor(bases, device=device), torch.as_tensor(lengths, device=device)
 
 
@@ -140,8 +189,9 @@ def test_gpu_count_graph_never_calls_the_plain_version(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", range(1, 11))
+@pytest.mark.parametrize("k", range(1, 13))
 def test_gpu_kernels_bitwise_equal_plain_version(k):
+    # at k >= 8 the last row hits both edges of the slices
     device = need_cuda()
     rng = np.random.default_rng(k)
     b, n = random_case(rng, 64 if k <= 8 else 8, 2100, k, device)
@@ -151,6 +201,26 @@ def test_gpu_kernels_bitwise_equal_plain_version(k):
             want = count_mod.count_torch(b, n, k, scaled=scaled, flat=flat)
             torch.cuda.synchronize()
             assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_one_code_rows_fill_one_bin_each():
+    b, n = (torch.from_numpy(a) for a in chip_smoke.one_code_case(9))
+    raw = count_mod.count_torch(b, n, 9, scaled=False)
+    assert raw[0, 0].item() == 65_536 and raw[1, -1].item() == 65_535
+    assert raw.sum().item() == 65_536 + 65_535
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 9])
+def test_gpu_hiblocked_bins_count_past_16_bits(k):
+    # one bin of each row counts every window: 65,536 and 65,535 of them
+    device = need_cuda()
+    b, n = (torch.as_tensor(a, device=device) for a in chip_smoke.one_code_case(k))
+    for scaled in (True, False):
+        got = count_cuda.count_kmers_cuda(b, n, k, scaled=scaled)
+        want = count_mod.count_torch(b, n, k, scaled=scaled)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
