@@ -26,12 +26,26 @@ and runs these phases, each a function of (device, scale, state):
 5. each kernel at its main-path shapes: its time (and per launch), its bound
    (and the share of it reached), the plain version's time and a library
    yardstick; for the hi-blocked kernel also a write-only pass over the same
-   output, and its time and bound at phase 2's widest k.
+   output, and its time and bound at phase 2's widest k;
+6. the statistics chain at k = 4 on the same corpus, in a temporary working
+   directory: ``find_dist`` (a 100,000-value background sample),
+   ``fit_distributions`` (norm, expon, rayleigh, uniform), ``find_pval`` for
+   the first 1,000 transcripts against all 13,000 (empirical and fitted) and
+   for the first 2,048 against themselves, ``adj_pval(fdr_bh)`` on each,
+   ``pearson_pairs`` on 100,000 random pairs, and the six CLI commands in
+   process on the first 1,000 transcripts.  Checked: r within 1e-4 of a
+   float64 recomputation; empirical p-values equal to the float64 ECDF away
+   from background ties (the share of near-tie cells is printed); fitted ones
+   within 1e-4 of scipy's cdf; the self matrix exactly symmetric and corrected
+   on its upper triangle; adj_pval within 1e-12 of a direct float64
+   Benjamini-Hochberg; pearson_pairs within 1e-5 of the blocked r-matrix.  One
+   JSON line per step gives its wall time and the device time (CUDA events) of
+   its counts and its GEMM.
 
-Launch counts are set to 0 just before phases 3 and 4 drive the main path and
-read just after; the run fails if a kernel of the path was not launched.  The
-last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
+Launch counts are set to 0 just before phases 3, 4 and 6 drive the main path
+and read just after; the run fails if a kernel of the path was not launched.
+The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
+and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
 """
 
@@ -72,12 +86,21 @@ class Scale:
     large_k_m: int       # transcripts of the k = 9 counter run
     long_lengths: tuple  # lengths of the two long transcripts of phase 4
     reps: int            # timed repetitions
+    stats_subset: int    # r-values of find_dist's background sample
+    stats_query: int     # transcripts of find_pval's query (and of the CLI runs)
+    stats_self: int      # transcripts of find_pval's self comparison
+    stats_pairs: int     # pairs through pearson_pairs
+    stats_plain_cells: int  # p-value cells held against a plain exceedance count
 
 
 FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
-             kernel_lmax=4096, large_k_m=1024, long_lengths=(20_000, 40_000), reps=10)
+             kernel_lmax=4096, large_k_m=1024, long_lengths=(20_000, 40_000), reps=10,
+             stats_subset=100_000, stats_query=1000, stats_self=2048, stats_pairs=100_000,
+             stats_plain_cells=4096)
 TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
-             kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2)
+             kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2,
+             stats_subset=600, stats_query=16, stats_self=24, stats_pairs=500,
+             stats_plain_cells=200)
 
 
 def log(*parts) -> None:
@@ -527,7 +550,370 @@ def hiblocked_detail(inputs, k, scale, device, state):
     log(json.dumps(out))
 
 
-PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing)
+STATS_K = 4
+STATS_MODELS = ["norm", "expon", "rayleigh", "uniform"]
+CLI_FIT_MODELS = ["expon", "norm"]
+
+
+def f64_pearson(c1, c2):
+    """Row-standardize + Gram / n in float64 on the host."""
+    def standardize(c):
+        c = np.asarray(c, dtype=np.float64)
+        c = c - c.mean(axis=1, keepdims=True)
+        return c / c.std(axis=1, keepdims=True)
+
+    return standardize(c1) @ standardize(c2).T / c1.shape[1]
+
+
+def direct_bh(p):
+    """Benjamini-Hochberg in float64 numpy, written out: p * n / rank, the
+    running minimum from the largest rank down, clipped to 1."""
+    p = np.asarray(p, dtype=np.float64).ravel()
+    order = np.argsort(p, kind="stable")
+    ranked = p[order] * len(p) / np.arange(1, len(p) + 1)
+    ranked = np.minimum(np.minimum.accumulate(ranked[::-1])[::-1], 1.0)
+    out = np.empty_like(ranked)
+    out[order] = ranked
+    return out
+
+
+def near_background(r, background, tol=1e-5, count=False):
+    """Cells of ``r`` within ``tol`` of some background value (or, with
+    ``count``, how many background values lie that near each cell)."""
+    b = np.sort(np.asarray(background, dtype=np.float64))
+    n = np.searchsorted(b, r + tol, side="right") - np.searchsorted(b, r - tol, side="left")
+    return n if count else n > 0
+
+
+def count_device_ms(seqs, k, passes, device, reps):
+    """Device time of the count kernel over a counter's buckets, ``passes``
+    times (CUDA events); None on the CPU."""
+    if not is_cuda(device):
+        return None
+    import torch
+
+    from seekr_tpu_torch.io.encode import encode_seqs
+    from seekr_tpu_torch.models.counter import _MAX_ROWS_PER_BUCKET
+    from seekr_tpu_torch.ops.count_cuda import count_kmers_cuda
+
+    total = 0.0
+    for b, n, _ in encode_seqs(seqs, k, max_rows_per_bucket=_MAX_ROWS_PER_BUCKET).buckets:
+        bt, nt = torch.as_tensor(b, device=device), torch.as_tensor(n, device=device)
+        total += cuda_ms(lambda: count_kmers_cuda(bt, nt, k), reps)
+    return passes * total
+
+
+def gemm_device_ms(c1, c2, device, reps, block_rows=None):
+    """Device time of the Pearson GEMM(s) on standardized operands (CUDA
+    events), in row blocks as the streamed path runs it; None on the CPU."""
+    if not is_cuda(device):
+        return None
+    from seekr_tpu_torch.ops.pearson import _row_standardize, matmul_nt
+
+    a, b = _row_standardize(c1), _row_standardize(c2)
+    rows = block_rows or a.shape[0]
+    return sum(cuda_ms(lambda s=s: matmul_nt(a[s:s + rows], b), reps)
+               for s in range(0, a.shape[0], rows))
+
+
+class _Discard:
+    """A stream_pearson writer that drops its blocks (after their copy to the host)."""
+
+    def append(self, block):
+        pass
+
+
+def stats_breakdown(device, scale, state, seqs, bkg, fitres, p_emp):
+    """Where the time of find_dist, find_pval and adj_pval goes: their parts,
+    each timed apart on the host clock (ending in a synchronize) after the
+    main-path run, at the main path's sizes."""
+    from seekr_tpu_torch.io.encode import encode_seqs
+    from seekr_tpu_torch.io.fast_csv import write_labeled_csv
+    from seekr_tpu_torch.io.fasta import Reader
+    from seekr_tpu_torch.io.stream import stream_pearson
+    from seekr_tpu_torch.models.counter import _MAX_ROWS_PER_BUCKET, KmerCounter
+    from seekr_tpu_torch.models.pearson import pearson
+    from seekr_tpu_torch.ops.ecdf import SortedBackground
+    from seekr_tpu_torch.stats.fast_cdf import fast_cdf
+    from seekr_tpu_torch.stats.find_dist import similarity_triu
+    from seekr_tpu_torch.stats.multitest import multipletests
+
+    parts = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        sync(device)
+        parts[name] = time.perf_counter() - t0
+        return result
+
+    timed("fasta_parse_s", lambda: Reader("corpus.fa").get_seqs())
+    timed("encode_s", lambda: encode_seqs(seqs, STATS_K, max_rows_per_bucket=_MAX_ROWS_PER_BUCKET))
+    counts = timed("counter_s", lambda: KmerCounter(
+        "corpus.fa", k=STATS_K, silent=True, device=device).get_counts_device())
+    timed("blocked_gemm_and_copy_s", lambda: stream_pearson(counts, counts, _Discard(),
+                                                            device=device))
+    triu = timed("similarity_triu_s", lambda: similarity_triu(counts, device=device))
+    np.random.seed(state["seed"])
+    timed("random_choice_s", lambda: np.random.choice(
+        triu, size=min(scale.stats_subset, len(triu)), replace=False))
+    del triu
+    sim = timed("pearson_query_s", lambda: pearson(counts[:scale.stats_query], counts,
+                                                   device=device))
+    timed("ecdf_s", lambda: SortedBackground(bkg).pvals(sim))
+    name, _, params = fitres[0]
+    timed("fast_cdf_s", lambda: fast_cdf(name, params, sim))
+    timed("multipletests_s", lambda: multipletests(p_emp.values, method="fdr_bh"))
+    timed("write_pvals_csv_s", lambda: write_labeled_csv(
+        "pvals.csv", p_emp.values, p_emp.index, p_emp.columns))
+    if is_cuda(device):
+        # the device's busy time inside whole calls, from a profiler trace
+        from seekr_tpu_torch.stats import find_dist, find_pval
+
+        for name, fn in (
+                ("find_dist", lambda: find_dist("corpus.fa", k_mer=STATS_K,
+                                                subset_size=scale.stats_subset,
+                                                fit_model=False, device=device)),
+                ("find_pval_empirical", lambda: find_pval(
+                    "query.fa", "corpus.fa", f"bkg_mean_{STATS_K}mers.npy",
+                    f"bkg_std_{STATS_K}mers.npy", STATS_K, bkg, device=device))):
+            parts[f"{name}_profiled_wall_s"], parts[f"{name}_device_busy_s"] = \
+                profiled_busy(device, fn)
+    log(json.dumps({"phase": "stats", "breakdown": parts, "sim_cells": int(sim.size)}))
+    return parts
+
+
+def profiled_busy(device, fn):
+    """(wall s, device busy s) of ``fn()`` under torch.profiler: the busy time
+    is the sum of the device time of every kernel and copy in the trace (one
+    stream, so nothing overlaps); None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return wall, (busy_us / 1e6 if busy_us else None)
+
+
+def phase_stats(device, scale, state):
+    """The statistics chain at k = 4: find_dist -> fit -> find_pval (three
+    calls) -> adj_pval, pearson_pairs, and the six CLI commands in process."""
+    import os
+
+    import scipy.stats
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.models.pearson import pearson
+    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops.ecdf import SortedBackground
+    from seekr_tpu_torch.ops.pearson import pearson_blocked, pearson_pairs
+    from seekr_tpu_torch.stats import adj_pval, find_dist, find_pval
+    from seekr_tpu_torch.stats.adj_pval import is_symmetric
+    from seekr_tpu_torch.stats.find_dist import fit_distributions, resolve_models
+
+    seqs = state["seqs"]
+    m, q, s = len(seqs), scale.stats_query, scale.stats_self
+    dev = str(device)
+    steps, results = [], {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        results[name] = fn()
+        sync(device)
+        steps.append({"phase": "stats", "step": name, "wall_s": time.perf_counter() - t0})
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            write_fasta_file("corpus.fa", seqs)  # set-up: the files the user would have
+            write_fasta_file("query.fa", seqs[:q])
+            write_fasta_file("self.fa", seqs[:s])
+            vectors = (f"bkg_mean_{STATS_K}mers.npy", f"bkg_std_{STATS_K}mers.npy")
+
+            count_cuda.reset_launches()
+            np.random.seed(state["seed"])
+            step("find_dist", lambda: find_dist(
+                "corpus.fa", k_mer=STATS_K, subsetting=True, subset_size=scale.stats_subset,
+                fit_model=False, device=device))
+            bkg = results["find_dist"]
+            step("fit_distributions", lambda: fit_distributions(
+                bkg, resolve_models(STATS_MODELS)))
+            fitres = results["fit_distributions"]
+            step("find_pval_empirical", lambda: find_pval(
+                "query.fa", "corpus.fa", *vectors, STATS_K, bkg, device=device))
+            step("find_pval_fitted", lambda: find_pval(
+                "query.fa", "corpus.fa", *vectors, STATS_K, fitres, device=device))
+            step("find_pval_self", lambda: find_pval(
+                "self.fa", "self.fa", *vectors, STATS_K, fitres, device=device))
+            for name in ("empirical", "fitted", "self"):
+                step(f"adj_pval_{name}", lambda name=name: adj_pval(
+                    results[f"find_pval_{name}"], "fdr_bh"))
+            counts = KmerCounter("corpus.fa", mean=vectors[0], std=vectors[1], k=STATS_K,
+                                 silent=True, device=device).get_counts_device()
+            rng = np.random.default_rng(state["seed"] + 4)
+            ii, jj = rng.integers(0, m, size=(2, scale.stats_pairs))
+            step("pearson_pairs", lambda: pearson_pairs(counts, ii, jj, device=device))
+            # the CLI's find_dist rewrites the k = 4 vectors from query.fa, and
+            # its find_pval then uses them
+            cli_runs = [
+                ["kmer_counts", "query.fa", "-o", "counts.csv"],
+                ["norm_vectors", "query.fa", "-mv", "q_mean.npy", "-sv", "q_std.npy"],
+                ["pearson", "counts.csv", "counts.csv", "-o", "pearson.csv"],
+                ["find_dist", "query.fa", "-k", "4", "-sbt", "-sbs",
+                 str(min(scale.stats_subset, q * (q - 1) // 4)), "-o", "cli_bkg"],
+                ["find_dist", "query.fa", "-k", "4", "-fm", "-mdl", ",".join(CLI_FIT_MODELS),
+                 "-sbt", "-sbs", str(min(scale.stats_subset, q * (q - 1) // 4)),
+                 "-o", "cli_fit"],
+                ["find_pval", "query.fa", "query.fa", *vectors, "4", "cli_fit.csv",
+                 "-o", "cli_pvals"],
+                ["adj_pval", "cli_pvals.csv", "fdr_bh", "-o", "cli_adj"],
+            ]
+            for argv in cli_runs:
+                name = f"cli_{argv[0]}" + ("_fit" if "-fm" in argv else "")
+                step(name, lambda argv=argv: cli.main(argv + ["--device", dev]))
+            read_launches(state, "stats")
+            if is_cuda(device) and count_cuda.launches["count_kmers_smem"] == 0:
+                raise AssertionError("the statistics chain never launched count_kmers_smem")
+
+            # -- checks --------------------------------------------------------
+            out = {"phase": "stats", "m": m, "k": STATS_K, "background_values": len(bkg)}
+            if bkg.shape != (min(scale.stats_subset, m * (m - 1) // 2),) \
+                    or not np.isfinite(bkg).all():
+                raise AssertionError(f"find_dist: shape {bkg.shape}")
+            c_query = counts[:q]
+            r_port = pearson(c_query, counts, device=device)
+            r64 = f64_pearson(c_query.cpu().numpy(), counts.cpu().numpy())
+            out["r_max_abs_vs_f64"] = float(np.abs(r_port - r64).max())
+            if not out["r_max_abs_vs_f64"] <= 1e-4:
+                raise AssertionError(f"r vs float64: {out['r_max_abs_vs_f64']} > 1e-4")
+
+            p_emp = results["find_pval_empirical"]
+            if p_emp.shape != (q, m) or p_emp.index != [f"t{i}" for i in range(q)]:
+                raise AssertionError(f"find_pval: shape {p_emp.shape}")
+            near = near_background(r64, bkg)
+            out["empirical_near_tie_share"] = float(near.mean())
+            want = SortedBackground(bkg).pvals(r64)
+            bad = int((p_emp.values != want.astype(np.float32))[~near].sum())
+            if bad:
+                raise AssertionError(f"empirical p-values differ in {bad} cells away from ties")
+            # in every cell: the exceedance counts differ by at most the
+            # background values within 1e-5 of r
+            n_near = near_background(r64, bkg, count=True)
+            diff = np.abs(np.rint(p_emp.values.astype(np.float64) * len(bkg))
+                          - np.rint(want * len(bkg)))
+            out["empirical_max_count_diff"] = float(diff.max())
+            if (diff > n_near).any():
+                raise AssertionError("empirical exceedance counts differ by more than "
+                                     "the background values near r")
+            # and against a plain count, independent of SortedBackground, on
+            # random cells: the share of background values greater than r
+            cells = np.random.default_rng(state["seed"] + 6).choice(
+                r64.size, size=min(scale.stats_plain_cells, r64.size), replace=False)
+            bkg64, r_cells = np.asarray(bkg, dtype=np.float64), r64.ravel()[cells]
+            plain_count = np.concatenate([
+                np.count_nonzero(bkg64[None, :] > r_cells[i:i + 256, None], axis=1)
+                for i in range(0, len(cells), 256)])
+            plain = (plain_count / len(bkg64)).astype(np.float32)
+            got = p_emp.values.ravel()[cells]
+            near_cells = near.ravel()[cells]
+            bad = int((got != plain)[~near_cells].sum())
+            count_diff = np.abs(np.rint(got.astype(np.float64) * len(bkg64)) - plain_count)
+            out["empirical_plain_cells"] = len(cells)
+            out["empirical_plain_max_count_diff"] = float(count_diff.max())
+            if bad or (count_diff > n_near.ravel()[cells]).any():
+                raise AssertionError(f"empirical p-values vs a plain count: {bad} cells "
+                                     "differ away from ties, or a count differs by more "
+                                     "than the background values near r")
+
+            # a model that fails to fit is only printed and skipped: every one
+            # asked for must come back, from the API and from the CLI's -fm run
+            fitted = {"api": sorted(row[0] for row in fitres),
+                      "cli": sorted(row[0] for row in
+                                    cli.parse_fitres_csv("cli_fit.csv", "distribution"))}
+            out["fitted_models"] = fitted
+            if fitted["api"] != sorted(STATS_MODELS) or fitted["cli"] != CLI_FIT_MODELS:
+                raise AssertionError(f"models missing from the fits: {fitted}")
+
+            name, _, params = fitres[0]
+            out["best_fit"] = name
+            want = 1.0 - getattr(scipy.stats, name)(*params).cdf(r64)
+            out["fitted_max_abs_vs_scipy"] = float(np.abs(results["find_pval_fitted"].values
+                                                          - want).max())
+            if not out["fitted_max_abs_vs_scipy"] <= 1e-4:
+                raise AssertionError(f"fitted p-values: {out['fitted_max_abs_vs_scipy']}")
+
+            p_self = results["find_pval_self"]
+            if not np.array_equal(p_self.values, p_self.values.T) or not is_symmetric(p_self):
+                raise AssertionError("the self p-value matrix is not exactly symmetric")
+
+            worst = 0.0
+            for name in ("empirical", "fitted", "self"):
+                pv, adj = results[f"find_pval_{name}"], results[f"adj_pval_{name}"]
+                if name == "self":
+                    iu = np.triu_indices(s, 1)
+                    got, want = adj.values[iu], direct_bh(pv.values[iu])
+                    if not np.isnan(adj.values[np.tril_indices(s)]).all():
+                        raise AssertionError("adj_pval on the self matrix left the lower "
+                                             "triangle: not the upper-triangle path")
+                else:
+                    got, want = adj.values.ravel(), direct_bh(pv.values)
+                worst = max(worst, float(np.abs(got - want).max()))
+            out["adj_max_abs_vs_direct_bh"] = worst
+            if not worst <= 1e-12:
+                raise AssertionError(f"adj_pval vs direct BH: {worst} > 1e-12")
+
+            full = pearson_blocked(counts, counts, device=device)
+            out["pairs_max_abs_vs_blocked"] = float(np.abs(results["pearson_pairs"]
+                                                           - full[ii, jj]).max())
+            del full
+            if not out["pairs_max_abs_vs_blocked"] <= 1e-5:
+                raise AssertionError(f"pearson_pairs: {out['pairs_max_abs_vs_blocked']}")
+
+            cli_adj = read_labeled_csv("cli_adj.csv")
+            if cli_adj.shape != (q, q) or not np.isnan(cli_adj.values[np.tril_indices(q)]).all():
+                raise AssertionError(f"CLI adj_pval: shape {cli_adj.shape}")
+            if read_labeled_csv("pearson.csv").shape != (q, q) \
+                    or read_labeled_csv("counts.csv").shape != (q, 4 ** PIPELINE_K):
+                raise AssertionError("CLI kmer_counts / pearson artifacts")
+
+            # -- device time of the counts and of the GEMM, per step ----------
+            device_ms = {
+                "find_dist": (count_device_ms(seqs, STATS_K, 2, device, scale.reps),
+                              gemm_device_ms(counts, counts, device, scale.reps, 4096)),
+                "find_pval_empirical": (
+                    count_device_ms(seqs[:q], STATS_K, 1, device, scale.reps)
+                    + count_device_ms(seqs, STATS_K, 1, device, scale.reps)
+                    if is_cuda(device) else None,
+                    gemm_device_ms(c_query, counts, device, scale.reps)),
+                "find_pval_self": (count_device_ms(seqs[:s], STATS_K, 1, device, scale.reps),
+                                   gemm_device_ms(counts[:s], counts[:s], device,
+                                                  scale.reps)),
+            }
+            device_ms["find_pval_fitted"] = device_ms["find_pval_empirical"]
+            state["stats_breakdown"] = stats_breakdown(device, scale, state, seqs, bkg,
+                                                       fitres, p_emp)
+        finally:
+            os.chdir(home)
+
+    for row in steps:
+        count_ms, gemm_ms = device_ms.get(row["step"], (None, None))
+        row["count_device_ms"], row["gemm_device_ms"] = count_ms, gemm_ms
+        if count_ms is not None:
+            row["device_share"] = (count_ms + gemm_ms) / 1e3 / row["wall_s"]
+        log(json.dumps(row))
+    out["wall_s"] = sum(row["wall_s"] for row in steps)
+    log(json.dumps(out))
+    state["stats"] = out
+
+
+PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
+          phase_stats)
 
 
 def run(device, scale, seed: int = 0) -> dict:
@@ -561,6 +947,8 @@ def main(argv=None) -> int:
     idle = [name for name in count_cuda.KERNELS if state["launches"][name] == 0]
     if idle:
         raise AssertionError(f"kernels of the main path never launched: {idle}")
+    for row in state["kernels"]:  # phase 6 launched after phase 5 built the rows
+        row["launches"] = state["launches"][row["name"]]
     print(json.dumps({"kernels": state["kernels"]}), flush=True)
     print(state["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,8 @@ error messages, with counting and normalization on ``device``:
 Deviations from the reference are seekr_tpu's: integer window counts scaled once
 by 1000/(len-k+1); a sequence shorter than k gives a zero row; a non-4-letter
 alphabet counts on the host.  The port encodes with the Python path only (the
-native encoder is a later slice), and ``save`` writes ``.npy`` only: the CSV
-writers come with the port's CLI.
+native encoder is a later slice).  ``save`` writes the reference's three forms:
+``.npy``, labeled CSV and raw ``'%1.6f'`` CSV (``io.fast_csv``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from seekr_tpu_torch.io.encode import encode_seq, encode_seqs, kmer_strings
+from seekr_tpu_torch.io.fast_csv import write_labeled_csv, write_raw_csv
 from seekr_tpu_torch.io.fasta import Reader
 from seekr_tpu_torch.ops.count import (count_kmers_device, count_kmers_host,
                                        count_kmers_long)
@@ -52,7 +53,7 @@ class KmerCounter:
     infasta: str (default=None)            path to fasta to count
     outfile: str (default=None)            where to save counts (.npy)
     k: int (default=6)                     k-mer size
-    binary: bool (default=True)            .npy if True; CSV waits for the CLI
+    binary: bool (default=True)            .npy if True, else CSV
     mean: bool | np.ndarray | str          center columns (str = .npy path)
     std: bool | np.ndarray | str           standardize columns (str = .npy path)
     log2: str (default='Log2.post')        'Log2.pre' | 'Log2.post' | 'Log2.none'
@@ -199,10 +200,10 @@ class KmerCounter:
     # -- persistence --------------------------------------------------------
 
     def save(self, names=None):
-        """Save counts as a binary .npy file (the reference's ``binary=True``).
+        """Save counts: binary .npy | labeled csv | raw %1.6f csv.
 
-        The CSV forms (labeled and raw) come with the port's CLI slice, which
-        brings the CSV writers; until then they raise ``NotImplementedError``.
+        The reference's kmer_counts.py:211-241 byte for byte, including the
+        '>'-prefixed fasta headers as csv row labels.
         """
         err_msg = (
             "You cannot label a binary file. "
@@ -212,11 +213,13 @@ class KmerCounter:
         )
         assert not (self.binary and self.label), err_msg
         assert self.outfile is not None, "Please provide an outfile location."
-        if not self.binary:
-            raise NotImplementedError(
-                "seekr_tpu_torch writes .npy counts only; CSV output comes with "
-                "the port's CLI slice (ROADMAP.md, queue 1: the port CLI)")
-        np.save(self.outfile, self.counts)
+        if self.binary:
+            np.save(self.outfile, self.counts)
+        elif self.label:
+            write_labeled_csv(self.outfile, self.counts,
+                              self.headers if names is None else names, self.kmers)
+        else:
+            write_raw_csv(self.outfile, self.counts)
 
     def make_count_file(self, names=None):
         """get_counts + save (if outfile set); returns the counts matrix."""

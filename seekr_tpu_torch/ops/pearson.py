@@ -8,6 +8,8 @@ and POPULATION std), then ``r = inner(c1, c2) / n_cols``.  The GEMM is
 
 For outputs too large for one buffer, ``pearson_blocked`` streams row blocks of
 the left operand (``io/stream.stream_pearson``) into a host array.
+``pearson_pairs`` computes only selected (i, j) pairs: a row gather and a
+row-wise multiply-sum, for the sampled background of find_dist.
 """
 
 from __future__ import annotations
@@ -85,6 +87,40 @@ def pearson_against_standardized(counts1, targets_std, device=None) -> torch.Ten
     dev = resolve_device(device)
     c1 = _row_standardize(as_float32(counts1, dev))
     return matmul_nt(c1, as_float32(targets_std, dev))
+
+
+def pearson_pairs(counts, ii, jj, row_standardize: bool = True,
+                  chunk: int = 65536, device=None) -> np.ndarray:
+    """r-values of selected row pairs, without forming any r-matrix.
+
+    ``out[t] = pearson(counts[ii[t]], counts[jj[t]])``: O(pairs * n) gather and
+    multiply-sum on ``device`` instead of the O(m^2 n) GEMM -- the engine of the
+    sampled find_dist, where only ``subset_size`` of the m(m-1)/2 pool is
+    fitted (seekr/find_dist.py:166-171).  Rows are standardized once; pairs go
+    in chunks of ``chunk``.  Indices are numpy-style (negative ones count from
+    the end) and checked on the host first, so an out-of-range index raises
+    ``IndexError`` as the reference's numpy indexing does.
+    """
+    dev = resolve_device(device)
+    c = as_float32(counts, dev)
+    if row_standardize:
+        c = _row_standardize(c)
+    ii = np.asarray(ii, dtype=np.int64).ravel()
+    jj = np.asarray(jj, dtype=np.int64).ravel()
+    m = int(c.shape[0])
+    for name, arr in (("ii", ii), ("jj", jj)):
+        if arr.size and (int(arr.min()) < -m or int(arr.max()) >= m):
+            raise IndexError(
+                f"{name} contains indices outside [-{m}, {m}) for a "
+                f"{m}-row count matrix")
+    ii = torch.as_tensor(np.where(ii < 0, ii + m, ii), device=dev)
+    jj = torch.as_tensor(np.where(jj < 0, jj + m, jj), device=dev)
+    out = torch.empty(ii.shape[0], dtype=torch.float32, device=dev)
+    for start in range(0, ii.shape[0], chunk):
+        a = c.index_select(0, ii[start:start + chunk])
+        b = c.index_select(0, jj[start:start + chunk])
+        out[start:start + chunk] = divide((a * b).sum(dim=1), c.shape[1])
+    return out.cpu().numpy()
 
 
 class _RowFiller:

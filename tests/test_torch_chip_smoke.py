@@ -28,6 +28,24 @@ def test_phases_rehearse_on_cpu():
     assert len(state["large_k_seqs"]) == chip_smoke.TINY.large_k_m
     # no kernel runs on the CPU, and no launch is counted
     assert state["launches"] == {"count_kmers_smem": 0, "count_kmers_hiblocked": 0}
+    # phase 6 ran the statistics chain, CLI included, and held its checks
+    stats = state["stats"]
+    assert stats["background_values"] == chip_smoke.TINY.stats_subset
+    assert stats["r_max_abs_vs_f64"] <= 1e-4 and stats["adj_max_abs_vs_direct_bh"] <= 1e-12
+    assert stats["pairs_max_abs_vs_blocked"] <= 1e-5
+
+
+def test_direct_bh_is_benjamini_hochberg():
+    p = np.array([0.01, 0.04, 0.03, 0.2, 0.04])
+    # p * n / rank, then the running minimum from the largest rank down
+    np.testing.assert_allclose(chip_smoke.direct_bh(p), [0.05, 0.05, 0.05, 0.2, 0.05])
+
+
+def test_near_background():
+    bkg = np.array([0.1, 0.2, 0.2000001])
+    r = np.array([0.10000002, 0.15, 0.2])
+    assert chip_smoke.near_background(r, bkg).tolist() == [True, False, True]
+    assert chip_smoke.near_background(r, bkg, count=True).tolist() == [1, 0, 2]
 
 
 def test_corpus_is_seeded_and_shaped():

@@ -42,12 +42,30 @@ def test_port_imports_neither_jax_nor_seekr_tpu(path):
         assert top not in ("jax", "jaxlib", "seekr_tpu"), f"{path} imports {name}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_needs_neither_pandas_nor_tqdm(path):
+    # pandas nowhere; tqdm only inside a function, behind a progress flag (torch
+    # itself imports tqdm where it is installed, so a fresh process cannot tell)
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name in imported_modules(path):
+        assert name.split(".")[0] != "pandas", f"{path} imports {name}"
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) \
+                else [node.module or ""]
+            assert not any(n.split(".")[0] == "tqdm" for n in names), \
+                f"{path} imports tqdm at module level"
+
+
 def test_port_imports_without_jax_in_a_fresh_process():
     import subprocess
 
     code = ("import sys, seekr_tpu_torch.models.counter, seekr_tpu_torch.models.pearson, "
-            "seekr_tpu_torch.models.pipeline, seekr_tpu_torch.utils.state; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'seekr_tpu')]; "
+            "seekr_tpu_torch.models.pipeline, seekr_tpu_torch.utils.state, "
+            "seekr_tpu_torch.stats, seekr_tpu_torch.cli, seekr_tpu_torch.io.stream, "
+            "seekr_tpu_torch.ops.ecdf; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'seekr_tpu', 'pandas')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -256,3 +274,38 @@ def test_gpu_pipeline_matches_cpu_run():
     gpu = SeekrPipeline(k=4, device=device).forward(bases, lengths).cpu().numpy()
     cpu = SeekrPipeline(k=4, device="cpu").forward(bases, lengths).numpy()
     np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_stats_chain_matches_cpu_run(tmp_path, monkeypatch):
+    device = need_cuda()
+    from seekr_tpu_torch.io.fasta import write_fasta
+    from seekr_tpu_torch.ops.ecdf import ecdf_sf
+    from seekr_tpu_torch.ops.pearson import pearson_pairs
+    from seekr_tpu_torch.stats import find_dist, find_pval
+    from seekr_tpu_torch.stats.find_dist import fit_distributions
+
+    monkeypatch.chdir(tmp_path)  # find_dist writes its vectors here
+    rng = np.random.default_rng(5)
+    for name, m in (("bkg", 60), ("q", 12)):
+        seqs = ["".join(rng.choice(list("ACGT"), size=int(rng.integers(150, 900))))
+                for _ in range(m)]
+        write_fasta(f"{name}.fa", [f"{name}{i}" for i in range(m)], seqs)
+    runs = {}
+    for dev in (device, "cpu"):
+        np.random.seed(6)
+        runs[str(dev)] = find_dist("bkg.fa", k_mer=3, subset_size=500, fit_model=False,
+                                   device=dev)
+    np.testing.assert_allclose(runs[str(device)], runs["cpu"], rtol=0, atol=1e-5)
+    fitres = fit_distributions(runs["cpu"], ["norm", "expon"])
+    vectors = ("bkg_mean_3mers.npy", "bkg_std_3mers.npy")
+    gpu = find_pval("q.fa", "bkg.fa", *vectors, 3, fitres, device=device)
+    cpu = find_pval("q.fa", "bkg.fa", *vectors, 3, fitres, device="cpu")
+    np.testing.assert_allclose(gpu.values, cpu.values, rtol=0, atol=1e-5)
+    counts = rng.random((50, 64)).astype(np.float32)
+    ii, jj = rng.integers(0, 50, size=(2, 300))
+    np.testing.assert_allclose(pearson_pairs(counts, ii, jj, device=device),
+                               pearson_pairs(counts, ii, jj, device="cpu"), rtol=0, atol=1e-6)
+    finite = torch.sort(torch.as_tensor(runs["cpu"])).values
+    r = torch.as_tensor(cpu.values)
+    assert torch.equal(ecdf_sf(finite.to(device), r.to(device)).cpu(), ecdf_sf(finite, r))

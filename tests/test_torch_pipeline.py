@@ -171,8 +171,12 @@ def test_counter_argument_errors(tmp_path):
         KmerCounter(log2="x", device="cpu")
     c = KmerCounter(str(fa), outfile=str(tmp_path / "c.csv"), k=2, std=False,
                     binary=False, silent=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="CLI slice"):
-        c.make_count_file()
+    c.make_count_file()  # the raw '%1.6f' CSV form
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "c.csv", delimiter=","), c.counts[0],
+                               rtol=0, atol=1e-6)
+    with pytest.raises(AssertionError, match="cannot label a binary file"):
+        KmerCounter(str(fa), outfile=str(tmp_path / "c.npy"), k=2, std=False, label=True,
+                    silent=True, device="cpu").make_count_file()
 
 
 def test_progress_bar_when_not_silent(capsys):
