@@ -40,9 +40,24 @@ and runs these phases, each a function of (device, scale, state):
    on its upper triangle; adj_pval within 1e-12 of a direct float64
    Benjamini-Hochberg; pearson_pairs within 1e-5 of the blocked r-matrix.  One
    JSON line per step gives its wall time and the device time (CUDA events) of
-   its counts and its GEMM.
+   its counts and its GEMM;
+7. the warm-resident service (``serve.SeekrService``) at seekr_tpu's serving
+   benchmark size (``bench.py:410-475``): the corpus as 13,000 targets at k = 6,
+   Log2.post, the width padded to 13,056 rows, the norm vectors and a
+   100,000-value empirical background from ``find_dist``.  Recorded: load and
+   warmup time; interleaved rounds of Q=1 ``sim`` and Q=128 ``topk=10``
+   queries of 512-2,048 bases (the Q=1 p50 and the Q=128 sequences/s); a burst
+   of 16 threads x 8 queries (device batches, latency percentiles); growth
+   within and across the width quantum; a snapshot saved and loaded; a round
+   trip over a UNIX socket; the device ms of each stage of a Q=1 and a Q=128
+   pass.  Checked: sim within 1e-4 of float64; top-k equal to a stable sort of
+   sim; empirical p-values equal to ``SortedBackground``; the segmented
+   normalize bitwise equal to ``normalize_counts`` per request; the burst
+   within 1e-6 of the serial answers; existing scores bitwise across a grow
+   within the quantum and after a snapshot reload; socket answers equal to
+   in-process ones.
 
-Launch counts are set to 0 just before phases 3, 4 and 6 drive the main path
+Launch counts are set to 0 just before phases 3, 4, 6 and 7 drive the main path
 and read just after; the run fails if a kernel of the path was not launched.
 The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -91,16 +106,24 @@ class Scale:
     stats_self: int      # transcripts of find_pval's self comparison
     stats_pairs: int     # pairs through pearson_pairs
     stats_plain_cells: int  # p-value cells held against a plain exceedance count
+    serve_rounds: int    # interleaved rounds of the service's traffic
+    serve_q1: int        # Q=1 sim queries per round
+    serve_big: int       # large top-k queries per round
+    serve_big_q: int     # rows of a large query
+    serve_burst: tuple   # (threads, queries each) of the coalesced burst
+    serve_grow: tuple    # rows added within the width quantum, then across it
 
 
 FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
              kernel_lmax=4096, large_k_m=1024, long_lengths=(20_000, 40_000), reps=10,
              stats_subset=100_000, stats_query=1000, stats_self=2048, stats_pairs=100_000,
-             stats_plain_cells=4096)
+             stats_plain_cells=4096, serve_rounds=3, serve_q1=10, serve_big=3,
+             serve_big_q=128, serve_burst=(16, 8), serve_grow=(40, 300))
 TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2,
              stats_subset=600, stats_query=16, stats_self=24, stats_pairs=500,
-             stats_plain_cells=200)
+             stats_plain_cells=200, serve_rounds=2, serve_q1=3, serve_big=1,
+             serve_big_q=16, serve_burst=(4, 2), serve_grow=(40, 200))
 
 
 def log(*parts) -> None:
@@ -912,8 +935,388 @@ def phase_stats(device, scale, state):
     state["stats"] = out
 
 
+SERVE_K = 6
+SERVE_TOPK = 10
+SERVE_QUANTUM = 256
+SERVE_LEN = (512, 2048)  # query lengths, uniform (bench.py's L_MIN, L_MAX)
+SERVE_CHECK_Q = 4        # rows of the queries that check growth, snapshots, the socket
+
+
+def random_queries(rng, n):
+    return [DIGIT2CHAR[rng.integers(0, 4, size=int(rng.integers(*SERVE_LEN)))].tobytes().decode()
+            for _ in range(n)]
+
+
+def timed_queries(svc, batches, want, topk=SERVE_TOPK):
+    """Host-clock ms of each ``svc.query`` (each returns its answer on the host)."""
+    ms = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        svc.query(batch, want=want, topk=topk)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def coalesced_burst(svc, batches_by_thread):
+    """Every thread sends its batches through ``svc.query`` back to back, all
+    threads released together.  Returns the answers by thread, in order."""
+    import threading
+
+    barrier = threading.Barrier(len(batches_by_thread))
+    answers = [None] * len(batches_by_thread)
+    errors = []
+
+    def client(i):
+        try:
+            barrier.wait(timeout=60)
+            answers[i] = [svc.query(b, want=("topk",), topk=SERVE_TOPK)
+                          for b in batches_by_thread[i]]
+        except Exception as err:  # noqa: BLE001 -- raised below
+            errors.append(err)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(answers))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"coalesced burst: errors {errors[:3]}, "
+                             f"{sum(t.is_alive() for t in threads)} threads still running")
+    return answers
+
+
+def socket_round_trip(svc, queries):
+    """ping, one topk_pvals query and shutdown through ``serve_forever`` on a
+    UNIX socket in the working directory; the server thread is joined."""
+    import threading
+
+    from seekr_tpu_torch.serve import request, serve_forever
+
+    path = "serve.sock"  # relative: short whatever the temporary directory is
+    ready = threading.Event()
+    server = threading.Thread(target=serve_forever, args=(svc, path, ready), daemon=True)
+    server.start()
+    try:
+        if not ready.wait(60):
+            raise AssertionError("the socket server never came up")
+        t0 = time.perf_counter()
+        pong = request(path, {"op": "ping"}, timeout=60)
+        answer = request(path, {"seqs": queries, "want": ["topk_pvals"],
+                                "topk": SERVE_TOPK}, timeout=60)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        try:
+            request(path, {"op": "shutdown"}, timeout=60)
+        except OSError:
+            pass
+        server.join(timeout=60)
+    if server.is_alive():
+        raise AssertionError("the socket server did not stop")
+    return pong, answer, ms
+
+
+def topk_agrees(got_vals, got_idx, ref_vals, ref_idx, tol=1e-6):
+    """Coalesced top-k against the serial one: values within ``tol``, and
+    indices equal wherever a value is more than ``tol`` from its neighbours
+    (``ref_*`` carry one column more, the (k+1)-th)."""
+    k = got_idx.shape[1]
+    if not np.abs(got_vals - ref_vals[:, :k]).max() <= tol:
+        return False
+    gaps = np.abs(np.diff(ref_vals, axis=1)) > tol  # [q, k] gaps to the next value
+    firm = gaps.copy()
+    firm[:, 1:] &= gaps[:, :-1]
+    return bool(np.array_equal(got_idx[firm], ref_idx[:, :k][firm]))
+
+
+def serve_breakdown(svc, batch, want, reps, device):
+    """Device ms of each stage of one serial pass (CUDA events): count (the
+    kernel on the uploaded bucket), normalize, GEMM (the query's row
+    standardization and the product), the top-k sort, and the copy to the host;
+    beside it the host's counter set-up and encode, torch.topk on the same row
+    (a yardstick with no tie order) and the pass's host-clock wall.  A stage of
+    many small launches is timed at the rate the host issues them.  None on the
+    CPU."""
+    if not is_cuda(device):
+        return None
+    import torch
+
+    from seekr_tpu_torch.io.encode import encode_seqs
+    from seekr_tpu_torch.ops.count_cuda import count_kmers_cuda
+    from seekr_tpu_torch.ops.normalize import normalize_counts
+    from seekr_tpu_torch.serve import _topk
+
+    q = len(batch)
+    padded = svc._pad_batch(batch)
+    t0 = time.perf_counter()
+    counter = svc._seq_counter(padded)
+    t1 = time.perf_counter()
+    enc = encode_seqs(padded, SERVE_K, min_bucket_len=counter.min_bucket_len)
+    t2 = time.perf_counter()
+    (b, n, _), = enc.buckets
+    bt, nt = torch.as_tensor(b, device=device), torch.as_tensor(n, device=device)
+    raw = count_kmers_cuda(bt, nt, SERVE_K)[:len(padded)]  # the bucket's pad rows dropped
+    qc, _, _ = normalize_counts(raw, log2_mode=svc.log2, mean=svc._mean_t, std=svc._std_t)
+    sim = svc._sim_device(qc)
+    n_run = 16  # the next power of two >= SERVE_TOPK
+    vals, idx = _topk(sim, svc._n_targets, n_run, True)
+    masked = sim.masked_fill(torch.arange(sim.shape[1], device=device) >= svc._n_targets,
+                             float("-inf"))
+    if "topk" in want:
+        def d2h():
+            vals[:q, :SERVE_TOPK].cpu(), idx[:q, :SERVE_TOPK].int().cpu()
+    else:
+        def d2h():
+            sim[:q, :svc._n_targets].cpu()
+    out = {
+        "q": q, "padded_rows": len(padded), "bucket": list(b.shape), "want": list(want),
+        "counter_setup_ms": (t1 - t0) * 1e3, "host_encode_ms": (t2 - t1) * 1e3,
+        "count_ms": cuda_ms(lambda: count_kmers_cuda(bt, nt, SERVE_K), reps),
+        "normalize_ms": cuda_ms(lambda: normalize_counts(
+            raw, log2_mode=svc.log2, mean=svc._mean_t, std=svc._std_t), reps),
+        "gemm_ms": cuda_ms(lambda: svc._sim_device(qc), reps),
+        "d2h_ms": cuda_ms(d2h, reps),
+        "wall_ms_median": statistics.median(timed_queries(svc, [batch] * reps, want)),
+    }
+    out["topk_sort_ms"] = cuda_ms(lambda: _topk(sim, svc._n_targets, n_run, True), reps) \
+        if "topk" in want else None
+    out["torch_topk_ms"] = cuda_ms(lambda: torch.topk(masked, n_run, dim=1), reps) \
+        if "topk" in want else None
+    device_ms = sum(out[key] or 0.0 for key in
+                    ("count_ms", "normalize_ms", "gemm_ms", "topk_sort_ms", "d2h_ms"))
+    out["device_ms"] = device_ms
+    out["host_remainder_ms"] = out["wall_ms_median"] - device_ms
+    out["gemm_tflop_per_s"] = 2.0 * len(padded) * sim.shape[1] * qc.shape[1] \
+        / (out["gemm_ms"] / 1e3) / 1e12
+    # the card's busy share of whole passes, from a profiler trace
+    out["profiled_wall_s"], out["device_busy_s"] = profiled_busy(
+        device, lambda: timed_queries(svc, [batch] * reps, want))
+    return out
+
+
+def phase_serve(device, scale, state):
+    """The warm-resident service at the JAX benchmark's serving size
+    (``bench.py:410-475``): the corpus as targets at k = 6, Log2.post, an
+    empirical background from find_dist, interleaved Q=1 sim and Q=128 top-k
+    rounds, a coalesced burst, growth, a snapshot and the socket."""
+    import os
+
+    import torch
+
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops.ecdf import SortedBackground
+    from seekr_tpu_torch.ops.normalize import normalize_counts_segmented
+    from seekr_tpu_torch.serve import SeekrService
+    from seekr_tpu_torch.stats import find_dist
+
+    seqs = state["seqs"]
+    m = len(seqs)
+    rng = np.random.default_rng(state["seed"] + 7)
+    rounds = scale.serve_rounds
+    q1_batches = [random_queries(rng, 1) for _ in range(rounds * scale.serve_q1 + 1)]
+    big_batches = [random_queries(rng, scale.serve_big_q)
+                   for _ in range(rounds * scale.serve_big + 1)]
+    n_threads, each = scale.serve_burst
+    burst = [[random_queries(rng, 1) for _ in range(each)] for _ in range(n_threads)]
+    check_q = random_queries(rng, SERVE_CHECK_Q)
+    grow_in, grow_across = (random_queries(rng, n) for n in scale.serve_grow)
+    out = {"phase": "serve", "card": state.get("smi"), "targets": m, "k": SERVE_K,
+           "grow_quantum": SERVE_QUANTUM}
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # set-up: the files a user would have.  find_dist writes the
+            # corpus' column statistics as the norm vectors, as norm_vectors
+            # does, and samples the empirical background
+            write_fasta_file("targets.fa", seqs)
+            np.random.seed(state["seed"])
+            bkg = find_dist("targets.fa", k_mer=SERVE_K, subset_size=scale.stats_subset,
+                            fit_model=False, exact_subsample_max_pool=0, device=device)
+            vectors = (f"bkg_mean_{SERVE_K}mers.npy", f"bkg_std_{SERVE_K}mers.npy")
+
+            # -- the main path: load, warm up, traffic ----------------------
+            count_cuda.reset_launches()
+            t0 = time.perf_counter()
+            svc = SeekrService(*vectors, k=SERVE_K, targets="targets.fa", fitres=bkg,
+                               grow_quantum=SERVE_QUANTUM, device=device)
+            sync(device)
+            out["load_s"] = time.perf_counter() - t0
+            out["resident_rows"] = int(svc._targets_std.shape[0])
+            out["resident_bytes"] = svc._targets_std.numel() * 4
+            t0 = time.perf_counter()
+            svc.warmup()
+            out["warmup_s"] = time.perf_counter() - t0
+            out["max_coalesce_rows"] = svc.max_coalesce_rows
+            timed_queries(svc, q1_batches[:1], ("sim",))  # batch-shape warm, as bench.py
+            timed_queries(svc, big_batches[:1], ("topk",))
+            if is_cuda(device):
+                torch.cuda.reset_peak_memory_stats(device)
+            p50s, tputs, q1_ms, big_ms = [], [], [], []
+            for r in range(rounds):  # interleaved, as bench.py
+                lat = timed_queries(svc, q1_batches[1 + r * scale.serve_q1:
+                                                    1 + (r + 1) * scale.serve_q1], ("sim",))
+                p50s.append(sorted(lat)[len(lat) // 2])
+                q1_ms += lat
+                lat = timed_queries(svc, big_batches[1 + r * scale.serve_big:
+                                                     1 + (r + 1) * scale.serve_big], ("topk",))
+                tputs.append(scale.serve_big_q / (sorted(lat)[len(lat) // 2] / 1e3))
+                big_ms += lat
+            out["q1_sim_p50_ms"] = sorted(p50s)[len(p50s) // 2]
+            out["q1_sim_ms_all"] = q1_ms
+            out[f"q{scale.serve_big_q}_topk{SERVE_TOPK}_seqs_per_s"] = \
+                sorted(tputs)[len(tputs) // 2]
+            out[f"q{scale.serve_big_q}_topk_ms_all"] = big_ms
+            if is_cuda(device):
+                out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
+            mixed = svc.query(big_batches[0], want=("sim", "pvals", "topk", "topk_pvals"),
+                              topk=SERVE_TOPK)
+            batches_before = svc.device_batches
+            svc._latencies.clear()  # the burst's own latency distribution
+            t0 = time.perf_counter()
+            burst_answers = coalesced_burst(svc, burst)
+            out["burst"] = {"threads": n_threads, "queries_each": each,
+                            "requests": n_threads * each,
+                            "device_batches": svc.device_batches - batches_before,
+                            "wall_s": time.perf_counter() - t0,
+                            "latency": svc.latency_stats()}
+            read_launches(state, "serve: load, warmup, traffic, burst")
+            launched = count_cuda.launches["count_kmers_smem"]
+
+            # the serial answers of the burst (a comparison: not counted)
+            svc.coalesce = False
+            serial = [[svc.query(b, want=("topk",), topk=SERVE_TOPK + 1) for b in batches]
+                      for batches in burst]
+            svc.coalesce = True
+
+            # -- the main path: growth, snapshot, socket --------------------
+            count_cuda.reset_launches()
+            before = svc.query(check_q)["sim"]
+            resident = svc._targets_std
+            t0 = time.perf_counter()
+            svc.add_targets(grow_in)
+            out["grow_within_s"] = time.perf_counter() - t0
+            in_place = svc._targets_std is resident
+            after = svc.query(check_q)["sim"]
+            t0 = time.perf_counter()
+            svc.add_targets(grow_across)
+            out["grow_across_s"] = time.perf_counter() - t0
+            out["resident_rows_after_growth"] = int(svc._targets_std.shape[0])
+            grown = svc.query(check_q)["sim"]
+            t0 = time.perf_counter()
+            svc.save_corpus("corpus.npz")
+            out["save_corpus_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = SeekrService(*vectors, k=SERVE_K, targets="corpus.npz", fitres=bkg,
+                                  grow_quantum=SERVE_QUANTUM, device=device)
+            sync(device)
+            out["snapshot_load_s"] = time.perf_counter() - t0
+            from_snapshot = loaded.query(check_q)["sim"]
+            del loaded
+            pong, answer, out["socket_round_trip_ms"] = socket_round_trip(svc, check_q)
+            in_process = svc.query(check_q, want=("topk_pvals",), topk=SERVE_TOPK)
+            read_launches(state, "serve: growth, snapshot, socket")
+            launched += count_cuda.launches["count_kmers_smem"]
+            if is_cuda(device) and not launched:
+                raise AssertionError("the service never launched count_kmers_smem")
+
+            # -- checks -----------------------------------------------------
+            q = scale.serve_big_q
+            raw_q = svc._count(svc._pad_batch(big_batches[0]))[:q]
+            targets = KmerCounter("targets.fa", k=SERVE_K, mean=vectors[0], std=vectors[1],
+                                  silent=True, device=device).get_counts_device()
+            ref = f64_pearson_device(raw_q, targets)
+            out["sim_max_abs_vs_f64"] = float(np.abs(mixed["sim"] - ref).max())
+            order = np.argsort(-mixed["sim"], axis=1, kind="stable")[:, :SERVE_TOPK]
+            out["topk_equals_stable_sort"] = bool(
+                np.array_equal(mixed["topk_idx"], order)
+                and np.array_equal(mixed["topk_sim"], np.take_along_axis(mixed["sim"], order, 1)))
+            sorted_bkg = SortedBackground(bkg)
+            out["empirical_pvals_equal"] = bool(
+                np.array_equal(mixed["pvals"], sorted_bkg.pvals(mixed["sim"]).astype(np.float32))
+                and np.array_equal(mixed["topk_pvals"],
+                                   sorted_bkg.pvals(mixed["topk_sim"]).astype(np.float32)))
+            out["segmented_bitwise"] = segmented_bitwise(svc, rng, normalize_counts_segmented)
+            out["coalesced_max_abs_vs_serial"] = max(
+                float(np.abs(a["topk_sim"] - s["topk_sim"][:, :SERVE_TOPK]).max())
+                for answers, refs in zip(burst_answers, serial) for a, s in zip(answers, refs))
+            out["coalesced_agrees"] = all(
+                topk_agrees(a["topk_sim"], a["topk_idx"], s["topk_sim"], s["topk_idx"])
+                for answers, refs in zip(burst_answers, serial) for a, s in zip(answers, refs))
+            out["grow_within_in_place"] = in_place
+            out["grow_within_bitwise"] = bool(np.array_equal(after[:, :m], before))
+            out["grow_across_max_abs"] = float(np.abs(grown[:, :m] - before).max())
+            out["snapshot_bitwise"] = bool(np.array_equal(from_snapshot, grown))
+            out["socket_equals_in_process"] = bool(
+                pong["ok"] and answer["ok"]
+                and all(np.array_equal(np.asarray(answer[key]), in_process[key])
+                        for key in ("topk_sim", "topk_idx", "topk_pvals")))
+            out["breakdown"] = [
+                serve_breakdown(svc, q1_batches[1], ("sim",), scale.reps, device),
+                serve_breakdown(svc, big_batches[1], ("topk",), scale.reps, device)]
+        finally:
+            os.chdir(home)
+
+    log(json.dumps(out))
+    state["serve"] = out
+    n_grown = m + sum(scale.serve_grow)
+    failures = [name for name, ok in (
+        ("sim vs float64", out["sim_max_abs_vs_f64"] <= 1e-4),
+        ("top-k vs a stable sort of sim", out["topk_equals_stable_sort"]),
+        ("empirical p-values vs SortedBackground", out["empirical_pvals_equal"]),
+        ("segmented normalize vs per request", out["segmented_bitwise"]),
+        ("coalesced vs serial", out["coalesced_agrees"]),
+        ("grow within the quantum: in place", out["grow_within_in_place"]),
+        ("grow within the quantum: bitwise", out["grow_within_bitwise"]),
+        ("grow across the quantum", out["grow_across_max_abs"] <= 1e-5
+         and out["resident_rows_after_growth"] == -(-n_grown // SERVE_QUANTUM) * SERVE_QUANTUM),
+        ("snapshot reload bitwise", out["snapshot_bitwise"]),
+        ("socket vs in process", out["socket_equals_in_process"]),
+        ("burst answered", out["burst"]["latency"]["count"] == n_threads * each),
+    ) if not ok]
+    if failures:
+        raise AssertionError(f"serve checks failed: {failures}")
+
+
+def f64_pearson_device(c1, c2):
+    """Row-standardize + Gram / n of two normalized count matrices in float64
+    on their device, returned on the host."""
+    import torch
+
+    def standardize(c):
+        c = c.to(torch.float64)
+        c = c - c.mean(dim=1, keepdim=True)
+        return c / c.std(dim=1, keepdim=True, correction=0)
+
+    return ((standardize(c1) @ standardize(c2).T) / c1.shape[1]).cpu().numpy()
+
+
+def segmented_bitwise(svc, rng, normalize_counts_segmented) -> bool:
+    """Requests of 1, 3, 2, 5 and 1 rows, counted together and normalized per
+    segment, against ``normalize_counts`` of each request alone (the serial
+    path's own counts): equal bit for bit."""
+    import torch
+
+    requests = [random_queries(rng, n) for n in (1, 3, 2, 5, 1)]
+    rows = [s for r in requests for s in r]
+    padded = svc._pad_batch(rows)
+    seg_ids = np.repeat(np.arange(len(requests), dtype=np.int32), [len(r) for r in requests])
+    seg_ids = np.concatenate([seg_ids, np.full(len(padded) - len(rows), len(requests) - 1,
+                                               np.int32)])
+    merged = normalize_counts_segmented(svc._count_raw(padded), seg_ids, 8, log2_mode=svc.log2,
+                                        mean=svc._mean_t, std=svc._std_t)
+    start = 0
+    for r in requests:
+        alone = svc._count(svc._pad_batch(r))[:len(r)]
+        if not torch.equal(merged[start:start + len(r)], alone):
+            return False
+        start += len(r)
+    return True
+
+
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
-          phase_stats)
+          phase_stats, phase_serve)
 
 
 def run(device, scale, seed: int = 0) -> dict:

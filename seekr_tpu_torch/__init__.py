@@ -12,6 +12,8 @@ and the statistics chain, run with PyTorch on one CUDA card:
     (``models``)
   * ``find_dist`` -> ``find_pval`` -> ``adj_pval`` and ``multipletests``
     (``stats``)
+  * the warm-resident service ``SeekrService`` and its socket server and
+    client (``serve``)
   * the command line: ``python -m seekr_tpu_torch.cli <command>`` (``cli``)
 
 Entry points take ``device=None``, which means the first CUDA card; without one

@@ -1,20 +1,21 @@
 """The port's command line: ``python -m seekr_tpu_torch.cli <command> [args]``.
 
-Six commands of ``seekr_tpu/cli.py``, with its flags and defaults and the same
+Eight commands of ``seekr_tpu/cli.py``, with its flags and defaults and the same
 file contracts (counts CSV/npy, mean/std npy, pearson npy/csv, fitres CSV,
-p-value CSV):
+p-value CSV, corpus snapshot npz, query CSV):
 
   main path    kmer_counts, norm_vectors, pearson
   statistics   find_dist, find_pval, adj_pval
+  serving      serve, query
 
 One flag is the port's own: ``--device`` (default: the first CUDA card; ``cpu``
-runs on the CPU).  Every command resolves it first, so without a card and
-without ``--device cpu`` a command raises instead of moving to the CPU on its
-own; adj_pval, which runs on the host, holds the same rule.  Not in this port
-yet, and refused with an error that names the slice they come with:
-``adj_pval -bi/-bo/--symmetric`` (the streamed correction), ``find_dist -pf``
-(the fit plot), and ``-dp``/``-kp`` above 1 (the device mesh).
-A bare command prints its help.
+runs on the CPU).  Every command but the client ``query`` resolves it first, so
+without a card and without ``--device cpu`` a command raises instead of moving
+to the CPU on its own; adj_pval, which runs on the host, holds the same rule.
+Not in this port yet, and refused with an error that names the slice they come
+with: ``adj_pval -bi/-bo/--symmetric`` (the streamed correction), ``find_dist
+-pf`` (the fit plot), ``-dp``/``-kp`` above 1 and serve's multi-host flags (the
+device mesh).  A bare command prints its help.
 """
 
 from __future__ import annotations
@@ -90,6 +91,37 @@ holm-sidak, simes-hochberg, hommel, fdr_bh, fdr_by, fdr_tsbh, fdr_tsbky.
   $ python -m seekr_tpu_torch.cli adj_pval pvals.csv fdr_bh -o adj_pvals
 """
 
+SERVE_DOC = """
+Warm-resident similarity service over a UNIX socket.  Loads the norm vectors,
+the target fasta (or a .npz snapshot) and a find_dist fitres ONCE, keeps the
+standardized targets on the card, and answers newline-delimited JSON requests:
+
+  request : {"seqs": ["AGTC...", ...], "want": ["sim", "pvals"]}
+  response: {"ok": true, "sim": [[...]], "pvals": [[...]], "m": Q, "n": T}
+  top-k   : {"seqs": [...], "want": ["topk"], "topk": 10} returns the 10 nearest
+            targets per query (topk_sim / topk_idx / topk_names, + topk_pvals
+            via want=["topk_pvals"]), selected on the card
+  ops     : {"op": "ping"}, {"op": "add_targets", "seqs"/"fasta": ...},
+            {"op": "save_corpus", "path": "c.npz"}, {"op": "shutdown"}
+
+The socket is created owner-only (0600).  Client-directed disk writes are
+rejected unless --allow-artifacts DIR is given, and are then confined to DIR.
+
+  $ python -m seekr_tpu_torch.cli serve mean.npy std.npy -k 6 -t gencode.fa \\
+        -fr fitres.csv --socket seekr.sock
+"""
+
+QUERY_DOC = """
+Query a running service: reads the query fasta, sends one request over the
+socket and writes CSV, the bytes seekr_tpu's query command writes.  The client
+needs no card and imports no torch.  Default output is the full [Q, T]
+similarity matrix labeled by query and target headers; --topk N gives the N
+nearest targets per query as tidy rows (query, rank, target, r).
+
+  $ python -m seekr_tpu_torch.cli query queries.fa --socket seekr.sock -o sim.csv
+  $ python -m seekr_tpu_torch.cli query queries.fa --socket seekr.sock --topk 10 --pvals
+"""
+
 
 def _parse_args_or_exit(parser, argv=None):
     argv = sys.argv[1:] if argv is None else argv
@@ -113,10 +145,13 @@ def _device(args):
 
 
 def _refuse_mesh(parser, args, *flags):
+    """Refuse a mesh flag that asks for more than one device or process: a
+    ``*_parallel`` count above 1, or any multi-host bootstrap value."""
     for flag in flags:
         value = getattr(args, flag)
-        if value is not None and value > 1:
-            parser.error(f"--{flag} {value}: the device mesh comes with {MESH_SLICE}")
+        if value is None or (flag.endswith("_parallel") and value <= 1):
+            continue
+        parser.error(f"--{flag} {value}: the device mesh comes with {MESH_SLICE}")
 
 
 # -- kmer_counts -------------------------------------------------------------
@@ -397,6 +432,186 @@ def console_adj_pval(argv=None):
              args.outputname)
 
 
+# -- serve / query -----------------------------------------------------------
+
+def console_serve(argv=None):
+    parser = _parser(SERVE_DOC)
+    parser.add_argument("mean_path", help="normalization mean vector (.npy).")
+    parser.add_argument("std_path", help="normalization std vector (.npy).")
+    parser.add_argument("-k", "--kmer", default=6,
+                        help="length of kmers you want to count.")
+    parser.add_argument("-l", "--log2", default="Log2.post", choices=LOG2_CHOICES,
+                        help="log2 transform mode.")
+    parser.add_argument("-t", "--targets", default=None,
+                        help="target fasta (default: score against the query "
+                             "batch itself), or a .npz corpus snapshot written "
+                             "by --save-corpus, which skips counting the fasta.")
+    parser.add_argument("--save-corpus", default=None, dest="save_corpus",
+                        help="write the loaded target corpus as a restartable "
+                             ".npz snapshot and exit.")
+    parser.add_argument("-fr", "--fitres_file", default=None,
+                        help="find_dist fitres csv enabling 'pvals'.")
+    parser.add_argument("-ft", "--fitres_type", default="distribution",
+                        choices=["distribution", "npy"],
+                        help="fitres artifact kind (see find_pval).")
+    parser.add_argument("--socket", default="seekr_tpu.sock",
+                        help="UNIX socket path to listen on (created owner-only, "
+                             "mode 0600).")
+    parser.add_argument("--allow-artifacts", default=None, dest="allow_artifacts",
+                        metavar="DIR",
+                        help="permit client-directed disk writes (query 'outfile' "
+                             "prefixes and the save_corpus op), confined to DIR.")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="skip the warmup passes.")
+    parser.add_argument("--mem-budget", default=None, type=int, dest="mem_budget",
+                        metavar="BYTES",
+                        help="resident-corpus device-memory budget in bytes; "
+                             "add_targets past it is refused.  Default: half the "
+                             "card's memory (SEEKR_TPU_CORPUS_BUDGET also sets it).")
+    parser.add_argument("--grow-quantum", default=256, type=int, dest="grow_quantum",
+                        metavar="ROWS",
+                        help="the resident corpus is padded to a multiple of this "
+                             "many rows, so a small add_targets changes no shape; "
+                             "1 disables.")
+    parser.add_argument("--no-coalesce", action="store_true",
+                        help="serve each request as its own device batch.")
+    parser.add_argument("-dp", "--data_parallel", default=None, type=int,
+                        help="devices of a sharded corpus (above 1: not in this "
+                             "port yet).")
+    parser.add_argument("--coordinator", default=None,
+                        help="multi-host bootstrap address (not in this port yet).")
+    parser.add_argument("--num_processes", default=None, type=int,
+                        help="multi-host process count (not in this port yet).")
+    parser.add_argument("--process_id", default=None, type=int,
+                        help="multi-host process id (not in this port yet).")
+    args = _parse_args_or_exit(parser, argv)
+    _refuse_mesh(parser, args, "data_parallel", "coordinator", "num_processes",
+                 "process_id")
+    if args.save_corpus and not args.targets:
+        parser.error("--save-corpus requires -t/--targets: the snapshot "
+                     "is the loaded target corpus")
+
+    from seekr_tpu_torch.serve import SeekrService, serve_forever
+
+    device = _device(args)
+    fitres = None
+    if args.fitres_file:
+        fitres = parse_fitres_csv(args.fitres_file, args.fitres_type)
+    svc = SeekrService(args.mean_path, args.std_path, k=int(args.kmer),
+                       log2=args.log2, targets=args.targets, fitres=fitres,
+                       coalesce=not args.no_coalesce,
+                       mem_budget_bytes=args.mem_budget,
+                       grow_quantum=args.grow_quantum, device=device)
+    if args.save_corpus:
+        svc.save_corpus(args.save_corpus)
+        print(f"seekr_tpu_torch serve: corpus snapshot written to "
+              f"{args.save_corpus} (serve with -t {args.save_corpus})", flush=True)
+        return
+    if not args.no_warmup:
+        print("seekr_tpu_torch serve: warming up...", flush=True)
+        svc.warmup()
+    print(f"seekr_tpu_torch serve: listening on {args.socket}", flush=True)
+    serve_forever(svc, args.socket, artifact_dir=args.allow_artifacts)
+
+
+def _topk_csv(names, targets, sims, pvals=None) -> bytes:
+    """The tidy top-k rows (query, rank, target, r[, pval]) as the bytes of
+    seekr_tpu's ``pd.DataFrame(rows).to_csv(index=False)``."""
+    import numpy as np
+
+    from seekr_tpu_torch.io.fast_csv import _quote, _shortest_cells
+
+    def floats(rows):
+        return _shortest_cells(np.asarray([v for row in rows for v in row],
+                                          dtype=np.float64)).astype(str)
+
+    r = floats(sims)
+    p = floats(pvals) if pvals is not None else None
+    lines = ["query,rank,target,r" + (",pval" if p is not None else "")]
+    i = 0
+    for qi, trow in enumerate(targets):
+        for rank, t in enumerate(trow):
+            line = f"{_quote(names[qi])},{rank},{_quote(t)},{r[i]}"
+            lines.append(line + (f",{p[i]}" if p is not None else ""))
+            i += 1
+    return ("\n".join(lines) + "\n").encode()
+
+
+def _emit(dest, data: bytes) -> None:
+    """Write CSV bytes to ``dest``, or to standard output when it is None."""
+    if dest:
+        with open(dest, "wb") as fh:
+            fh.write(data)
+    else:
+        sys.stdout.write(data.decode())
+        sys.stdout.flush()
+
+
+def console_query(argv=None):
+    parser = argparse.ArgumentParser(usage=QUERY_DOC,
+                                     formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("query_fasta", help="fasta file with the query sequences.")
+    parser.add_argument("--socket", default="seekr_tpu.sock",
+                        help="UNIX socket path of the running service.")
+    parser.add_argument("-o", "--outfile", default=None,
+                        help="write the CSV here (default: stdout).")
+    parser.add_argument("--pvals", action="store_true",
+                        help="also request p-values (the service needs a fitres).")
+    parser.add_argument("--topk", default=0, type=int,
+                        help="return the N nearest targets per query instead of "
+                             "the full matrix.")
+    parser.add_argument("--npy", default=None,
+                        help="server-side artifact mode: the SERVICE writes "
+                             "<prefix>_sim.npy / <prefix>_pvals.npy.")
+    parser.add_argument("--timeout", default=600.0, type=float,
+                        help="socket timeout in seconds.")
+    args = _parse_args_or_exit(parser, argv)
+
+    import os
+
+    import numpy as np
+
+    from seekr_tpu_torch.io.fast_csv import labeled_csv_bytes
+    from seekr_tpu_torch.io.fasta import Reader
+    from seekr_tpu_torch.serve import request
+
+    reader = Reader(args.query_fasta)
+    seqs = reader.get_seqs()
+    names = [h[1:] for h in reader.get_headers()]
+    if args.topk:
+        want = ["topk", "topk_pvals"] if args.pvals else ["topk"]
+    else:
+        want = ["sim", "pvals"] if args.pvals else ["sim"]
+    payload = {"seqs": seqs, "want": want, "names": not args.topk}
+    if args.topk:
+        payload["topk"] = args.topk
+    if args.npy:
+        payload["outfile"] = args.npy
+    resp = request(args.socket, payload, timeout=args.timeout)
+    if not resp.get("ok"):
+        print(f"seekr_tpu_torch query: service error: {resp.get('error')}",
+              file=sys.stderr)
+        sys.exit(1)
+
+    if args.topk:
+        _emit(args.outfile, _topk_csv(names, resp.get("topk_names") or resp["topk_idx"],
+                                      resp["topk_sim"], resp.get("topk_pvals")))
+        return
+    if args.npy:
+        for key, path in resp.get("files", {}).items():
+            print(f"{key}: {path}")
+        return
+    cols = resp.get("target_names", names)
+    for key in ("sim", "pvals"):
+        if key in resp:
+            dest = args.outfile
+            if dest and "pvals" in resp and "sim" in resp:
+                root, ext = os.path.splitext(dest)
+                dest = f"{root}_{key}{ext or '.csv'}"
+            _emit(dest, labeled_csv_bytes(np.asarray(resp[key], dtype=np.float64),
+                                          names, cols))
+
+
 # -- module dispatcher (python -m seekr_tpu_torch.cli <command> ...) -----------
 
 COMMANDS = {
@@ -406,6 +621,8 @@ COMMANDS = {
     "find_dist": console_find_dist,
     "find_pval": console_find_pval,
     "adj_pval": console_adj_pval,
+    "serve": console_serve,
+    "query": console_query,
 }
 
 

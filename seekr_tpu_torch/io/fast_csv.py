@@ -123,8 +123,8 @@ def header_line(columns) -> str:
     return "," + ",".join(_quote(c) for c in columns) + "\n"
 
 
-def write_labeled_csv(path, matrix, index, columns) -> None:
-    """Byte-identical to ``pd.DataFrame(matrix, index, columns).to_csv``."""
+def labeled_csv_bytes(matrix, index, columns) -> bytes:
+    """The bytes of ``pd.DataFrame(matrix, index, columns).to_csv()``."""
     matrix = np.asarray(matrix)
     index, columns = list(index), list(columns)
     if matrix.shape != (len(index), len(columns)):
@@ -132,9 +132,15 @@ def write_labeled_csv(path, matrix, index, columns) -> None:
         raise ValueError(
             f"Shape of passed values is {matrix.shape}, indices imply "
             f"({len(index)}, {len(columns)})")
+    return header_line(columns).encode() + format_rows(matrix, "%s",
+                                                       [_quote(i) for i in index])
+
+
+def write_labeled_csv(path, matrix, index, columns) -> None:
+    """Byte-identical to ``pd.DataFrame(matrix, index, columns).to_csv``."""
+    data = labeled_csv_bytes(matrix, index, columns)
     with open(path, "wb") as fh:
-        fh.write(header_line(columns).encode())
-        fh.write(format_rows(matrix, "%s", [_quote(i) for i in index]))
+        fh.write(data)
 
 
 def write_raw_csv(path, matrix) -> None:

@@ -84,3 +84,44 @@ def normalize_counts(counts: torch.Tensor, *, log2_mode: str = LOG2_POST,
         return torch.as_tensor(v, device=counts.device)
 
     return normalize_graph(counts, arg(mean), arg(std), log2_mode)
+
+
+def normalize_counts_segmented(counts: torch.Tensor, seg_ids, n_segments: int, *,
+                               log2_mode: str = LOG2_POST, mean, std) -> torch.Tensor:
+    """Normalize independent row segments of one matrix in one pass.
+
+    Port of ``seekr_tpu/ops/normalize.py:96-146``, for request coalescing
+    (``serve.py``): several queries' rows are counted and normalized as one
+    batch, but each segment gets the Log2.post shift of its own rows.  The min
+    of the row mins is the same float as one global min (``min`` never rounds)
+    and the adds keep ``normalize_graph``'s order, so each segment's rows are
+    bitwise what ``normalize_counts`` gives that segment alone.  A segment
+    holding a NaN gets a NaN shift, as ``min`` spreads it there.
+
+    ``mean``/``std`` must be provided vectors: computed statistics over a
+    coalesced batch would mix requests.  ``seg_ids`` maps each row to its
+    segment in ``[0, n_segments)``; empty segments are harmless.
+    """
+    check_log2_mode(log2_mode)
+    if mean is True or std is True or mean is False or std is False:
+        raise ValueError("normalize_counts_segmented requires provided "
+                         "mean/std vectors (got computed/skipped)")
+    dev = counts.device
+    counts = counts.to(torch.float32)
+    if log2_mode == LOG2_PRE:
+        counts = accurate_log2(counts + 1.0)
+    counts = counts - torch.as_tensor(mean, device=dev).to(torch.float32)
+    counts = counts / torch.as_tensor(std, device=dev).to(torch.float32)
+    if log2_mode == LOG2_POST:
+        seg = torch.as_tensor(seg_ids, device=dev).to(torch.int64)
+        row_min = counts.amin(dim=1)  # NaN-propagating
+        nan_row = torch.isnan(row_min)
+        # the NaN of a segment is carried apart: scatter_reduce's amin is not
+        # documented to propagate NaN on every device
+        seg_min = torch.zeros(n_segments, dtype=torch.float32, device=dev).scatter_reduce(
+            0, seg, row_min.masked_fill(nan_row, float("inf")), "amin", include_self=False)
+        seg_nan = torch.zeros(n_segments, dtype=torch.float32, device=dev).index_add_(
+            0, seg, nan_row.to(torch.float32)) > 0
+        shift = seg_min.masked_fill(seg_nan, float("nan")).abs()
+        counts = accurate_log2(counts + shift[seg][:, None] + 1.0)
+    return counts

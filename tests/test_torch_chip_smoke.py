@@ -33,6 +33,12 @@ def test_phases_rehearse_on_cpu():
     assert stats["background_values"] == chip_smoke.TINY.stats_subset
     assert stats["r_max_abs_vs_f64"] <= 1e-4 and stats["adj_max_abs_vs_direct_bh"] <= 1e-12
     assert stats["pairs_max_abs_vs_blocked"] <= 1e-5
+    # phase 7 served the corpus, grew it across the quantum and held its checks
+    served = state["serve"]
+    assert served["resident_rows"] == 256 and served["resident_rows_after_growth"] == 512
+    assert served["segmented_bitwise"] and served["grow_within_bitwise"]
+    assert served["snapshot_bitwise"] and served["socket_equals_in_process"]
+    assert served["burst"]["latency"]["count"] == 8
 
 
 def test_direct_bh_is_benjamini_hochberg():
@@ -73,6 +79,15 @@ def test_slice_edge_row_hits_both_edges_of_every_slice_width(k):
 def test_kernel_case_at_one_row():
     b, n = chip_smoke.kernel_case(np.random.default_rng(0), 1, 600, 15)
     assert b.shape == (1, 600) and n.tolist() == [600]
+
+
+def test_topk_agrees_allows_swaps_only_at_near_ties():
+    ref_vals = np.array([[0.9, 0.5, 0.5000005, 0.1]])  # k = 3 and the 4th value
+    ref_idx = np.array([[4, 7, 2, 9]])
+    got_vals = ref_vals[:, :3] + 1e-7
+    assert chip_smoke.topk_agrees(got_vals, np.array([[4, 2, 7]]), ref_vals, ref_idx)
+    assert not chip_smoke.topk_agrees(got_vals, np.array([[7, 4, 2]]), ref_vals, ref_idx)
+    assert not chip_smoke.topk_agrees(got_vals + 1e-5, ref_idx[:, :3], ref_vals, ref_idx)
 
 
 def test_needed_bytes():

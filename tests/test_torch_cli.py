@@ -176,7 +176,7 @@ def test_commands_need_a_card_unless_cpu_is_asked(example_fa, work, monkeypatch,
 def test_dispatcher_help_and_unknown(capsys):
     assert cli.main([]) == 0
     out = capsys.readouterr().out
-    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 6
+    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 8
     assert cli.main(["nope"]) == 2
     with pytest.raises(SystemExit) as exc:
         cli.main(["kmer_counts"])  # a bare command prints its help

@@ -63,7 +63,7 @@ def test_port_imports_without_jax_in_a_fresh_process():
     code = ("import sys, seekr_tpu_torch.models.counter, seekr_tpu_torch.models.pearson, "
             "seekr_tpu_torch.models.pipeline, seekr_tpu_torch.utils.state, "
             "seekr_tpu_torch.stats, seekr_tpu_torch.cli, seekr_tpu_torch.io.stream, "
-            "seekr_tpu_torch.ops.ecdf; "
+            "seekr_tpu_torch.ops.ecdf, seekr_tpu_torch.serve; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'seekr_tpu', 'pandas')]; "
             "assert not bad, bad")
@@ -89,6 +89,22 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
         KmerCounter(k=3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pearson(np.ones((3, 4), np.float32), np.ones((2, 4), np.float32))
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.serve import SeekrService
+
+    np.save(tmp_path / "mean.npy", np.ones(64))
+    np.save(tmp_path / "std.npy", np.ones(64))
+    vectors = [str(tmp_path / "mean.npy"), str(tmp_path / "std.npy")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SeekrService(*vectors, k=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["serve", *vectors, "-k", "3", "--socket", str(tmp_path / "s.sock")])
+    # the client resolves no device: without a server it fails to connect
+    (tmp_path / "q.fa").write_text(">q\nACGT\n")
+    with pytest.raises(OSError):
+        cli.main(["query", str(tmp_path / "q.fa"), "--socket", str(tmp_path / "none.sock"),
+                  "--timeout", "5"])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -309,3 +325,86 @@ def test_gpu_stats_chain_matches_cpu_run(tmp_path, monkeypatch):
     finite = torch.sort(torch.as_tensor(runs["cpu"])).values
     r = torch.as_tensor(cpu.values)
     assert torch.equal(ecdf_sf(finite.to(device), r.to(device)).cpu(), ecdf_sf(finite, r))
+
+
+def serve_case(tmp_path, rng, n_targets=6):
+    letters = np.array(list("AGTC"))
+    seqs = ["".join(letters[rng.integers(0, 4, size=int(rng.integers(60, 200)))])
+            for _ in range(n_targets + 5)]
+    np.save(tmp_path / "mean.npy", rng.uniform(0.5, 2.0, 64))
+    np.save(tmp_path / "std.npy", rng.uniform(0.5, 2.0, 64))
+    (tmp_path / "t.fa").write_text("".join(f">t{i}\n{s}\n" for i, s in
+                                           enumerate(seqs[:n_targets])))
+    return [str(tmp_path / "mean.npy"), str(tmp_path / "std.npy")], seqs[n_targets:]
+
+
+@pytest.mark.gpu
+def test_gpu_service_matches_cpu_run(tmp_path):
+    device = need_cuda()
+    from seekr_tpu_torch.serve import SeekrService
+
+    rng = np.random.default_rng(7)
+    vectors, queries = serve_case(tmp_path, rng)
+    bkg = np.sort(rng.normal(0, 0.3, 5000))
+    outs = {}
+    for dev in (device, "cpu"):
+        svc = SeekrService(*vectors, k=3, targets=str(tmp_path / "t.fa"), fitres=bkg,
+                           device=dev)
+        before = count_cuda.launches["count_kmers_smem"]
+        outs[str(dev)] = svc.query(queries, want=("sim", "pvals", "topk"), topk=4)
+        if dev == device:
+            assert count_cuda.launches["count_kmers_smem"] > before
+    got, want = outs[str(device)], outs["cpu"]
+    np.testing.assert_allclose(got["sim"], want["sim"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["topk_sim"], want["topk_sim"], rtol=0, atol=1e-5)
+    assert got["topk_idx"].dtype == np.int32 and got["topk_idx"].shape == (5, 4)
+
+
+@pytest.mark.gpu
+def test_gpu_topk_ties_go_to_the_lower_index():
+    device = need_cuda()
+    from seekr_tpu_torch.serve import _topk
+
+    rng = np.random.default_rng(8)
+    # few distinct values over wide rows: every row is full of exact ties
+    sim = torch.as_tensor(rng.integers(-2, 3, size=(64, 13_056)).astype(np.float32) / 4,
+                          device=device)
+    vals, idx = _topk(sim, 13_000, 16, True)
+    want = np.argsort(-sim.cpu().numpy()[:, :13_000], axis=1, kind="stable")[:, :16]
+    np.testing.assert_array_equal(idx.cpu().numpy(), want)
+    np.testing.assert_array_equal(vals.cpu().numpy(),
+                                  np.take_along_axis(sim.cpu().numpy(), want, 1))
+
+
+@pytest.mark.gpu
+def test_gpu_request_alone_does_not_initialise_cuda(tmp_path):
+    need_cuda()
+    code = f"""
+import sys, threading
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np
+import torch
+from seekr_tpu_torch import cli
+from seekr_tpu_torch.serve import SeekrService, request, serve_forever
+
+svc = SeekrService({str(tmp_path / 'mean.npy')!r}, {str(tmp_path / 'std.npy')!r}, k=3,
+                   targets={str(tmp_path / 't.fa')!r}, device="cpu")
+ready = threading.Event()
+t = threading.Thread(target=serve_forever, args=(svc, "s.sock", ready), daemon=True)
+t.start()
+assert ready.wait(30)
+assert request("s.sock", {{"op": "ping"}}, timeout=30)["ok"]
+cli.main(["query", {str(tmp_path / 'q.fa')!r}, "--socket", "s.sock", "--timeout", "30",
+          "-o", "out.csv"])
+assert request("s.sock", {{"op": "shutdown"}}, timeout=30)["ok"]
+t.join(30)
+assert not t.is_alive()
+assert not torch.cuda.is_initialized()
+"""
+    _, queries = serve_case(tmp_path, np.random.default_rng(9))
+    (tmp_path / "q.fa").write_text("".join(f">q{i}\n{s}\n" for i, s in enumerate(queries)))
+    import subprocess
+
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
