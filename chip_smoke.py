@@ -8,7 +8,8 @@ PyTorch built for CUDA.  It builds the CUDA kernels from ``seekr_tpu_torch/csrc`
 and runs these phases, each a function of (device, scale, state):
 
 1. environment: torch and CUDA versions, ``nvcc --version``, the card's name and
-   power limit, and the kernel build (with ptxas' register and spill lines);
+   power limit, the kernel build (with ptxas' register and spill lines), and the
+   host C++ library's g++ build (its path and build time);
 2. every count kernel against its plain PyTorch version (``count_torch``) at
    k = 1..12 and 15, with N bases, short, zero-length and padded rows, and at
    k >= 8 a row whose windows hit both edges of the hi-blocked kernel's slices,
@@ -22,7 +23,9 @@ and runs these phases, each a function of (device, scale, state):
 4. the same corpus through ``KmerCounter(fasta).get_counts()`` and ``pearson``
    (the blocked path): exactly symmetric, within 1e-4 of phase 3; a FASTA with
    two transcripts past the long-sequence threshold against the numpy oracle;
-   and ``KmerCounter(k=9)`` (the large-k kernel) against the numpy oracle;
+   and ``KmerCounter(k=9)`` (the large-k kernel) against the numpy oracle; then
+   the same counter with the Python parse and encode forced, for its
+   time, and its counts bitwise those of the native parse and encode;
 5. each kernel at its main-path shapes: its time (and per launch), its bound
    (and the share of it reached), the plain version's time and a library
    yardstick; for the hi-blocked kernel also a write-only pass over the same
@@ -40,7 +43,10 @@ and runs these phases, each a function of (device, scale, state):
    on its upper triangle; adj_pval within 1e-12 of a direct float64
    Benjamini-Hochberg; pearson_pairs within 1e-5 of the blocked r-matrix.  One
    JSON line per step gives its wall time and the device time (CUDA events) of
-   its counts and its GEMM;
+   its counts and its GEMM; a breakdown times each host part twice, through the
+   host C++ library and through the Python/numpy path it replaced
+   (``SEEKR_TPU_HOST_SORT=numpy``, the Python parse and writer), and fails
+   unless the counts, the corrections and the 13 M-cell CSV bytes agree;
 7. the warm-resident service (``serve.SeekrService``) at seekr_tpu's serving
    benchmark size (``bench.py:410-475``): the corpus as 13,000 targets at k = 6,
    Log2.post, the width padded to 13,056 rows, the norm vectors and a
@@ -55,9 +61,19 @@ and runs these phases, each a function of (device, scale, state):
    normalize bitwise equal to ``normalize_counts`` per request; the burst
    within 1e-6 of the serial answers; existing scores bitwise across a grow
    within the quantum and after a snapshot reload; socket answers equal to
-   in-process ones.
+   in-process ones;
+8. communities (``graph.kmer_leiden``) at the reference's background size:
+   13,000 k = 6 transcripts in 260 planted families of 50 (each member its
+   founder with 10% of its bases substituted), norm vectors from the corpus,
+   ``RBERVertexPartition``, ``setseed``, cutoff 0.2; dense, streamed with its
+   Gephi export, and the dense export on the first 500.  Printed: the within-
+   and across-family r quantiles and each stage's time (counter, GEMM, copy,
+   threshold, edges, Leiden, export, the card's busy share).  Checked: the
+   similarity within 1e-4 of float64; the edge set equal to float64's but for
+   pairs within 1e-4 of the cutoff; the 260 families found exactly; two seeded
+   runs identical; the streamed edges and partition equal to the dense ones.
 
-Launch counts are set to 0 just before phases 3, 4, 6 and 7 drive the main path
+Launch counts are set to 0 just before phases 3, 4, 6, 7 and 8 drive the main path
 and read just after; the run fails if a kernel of the path was not launched.
 The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -73,6 +89,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -112,18 +129,24 @@ class Scale:
     serve_big_q: int     # rows of a large query
     serve_burst: tuple   # (threads, queries each) of the coalesced burst
     serve_grow: tuple    # rows added within the width quantum, then across it
+    leiden_k: int        # k of the community run
+    leiden_families: int  # planted families of the community run
+    leiden_members: int  # transcripts of each family
+    leiden_dense_export: int  # transcripts of the dense Gephi export
 
 
 FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
              kernel_lmax=4096, large_k_m=1024, long_lengths=(20_000, 40_000), reps=10,
              stats_subset=100_000, stats_query=1000, stats_self=2048, stats_pairs=100_000,
              stats_plain_cells=4096, serve_rounds=3, serve_q1=10, serve_big=3,
-             serve_big_q=128, serve_burst=(16, 8), serve_grow=(40, 300))
+             serve_big_q=128, serve_burst=(16, 8), serve_grow=(40, 300), leiden_k=6,
+             leiden_families=260, leiden_members=50, leiden_dense_export=500)
 TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2,
              stats_subset=600, stats_query=16, stats_self=24, stats_pairs=500,
              stats_plain_cells=200, serve_rounds=2, serve_q1=3, serve_big=1,
-             serve_big_q=16, serve_burst=(4, 2), serve_grow=(40, 200))
+             serve_big_q=16, serve_burst=(4, 2), serve_grow=(40, 200), leiden_k=4,
+             leiden_families=6, leiden_members=8, leiden_dense_export=20)
 
 
 def log(*parts) -> None:
@@ -157,6 +180,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextmanager
+def python_host_paths():
+    """The host paths as they ran before the C++ library, for a "before" reading
+    and as the reference of the native ones: the Python FASTA parse and encode
+    (the native parse gate answers no) and the numpy sorts
+    (``SEEKR_TPU_HOST_SORT=numpy``).
+    The Python CSV writer is ``io.fast_csv.labeled_csv_bytes``, called apart."""
+    import os
+
+    from seekr_tpu_torch.io import encode
+
+    gate, env = encode._native_parse_is_safe, os.environ.get("SEEKR_TPU_HOST_SORT")
+    encode._native_parse_is_safe = lambda path: False
+    os.environ["SEEKR_TPU_HOST_SORT"] = "numpy"
+    try:
+        yield
+    finally:
+        encode._native_parse_is_safe = gate
+        if env is None:
+            del os.environ["SEEKR_TPU_HOST_SORT"]
+        else:
+            os.environ["SEEKR_TPU_HOST_SORT"] = env
 
 
 # -- data ------------------------------------------------------------------
@@ -241,6 +288,13 @@ def phase_env(device, scale, state):
 
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
+    from seekr_tpu_torch import native
+
+    t0 = time.perf_counter()
+    state["native_library"] = native.library_path()  # g++ at first use: no fallback
+    state["native_build_s"] = time.perf_counter() - t0
+    log(f"host library (g++): {state['native_library']}, build + load "
+        f"{state['native_build_s']:.2f} s")
     if not is_cuda(device):
         log("device: cpu (rehearsal; no kernel is built)")
         return
@@ -428,10 +482,21 @@ def phase_counter(device, scale, state):
         large_k_counts = KmerCounter(str(fa_large_k), k=LARGE_K, **raw).get_counts()
         t3 = time.perf_counter()
         read_launches(state, "counter")
+        # the Python parse and encode on the same file (not counted):
+        # its time, and the native path's counts bit for bit
+        with python_host_paths():
+            t4 = time.perf_counter()
+            python_counts = KmerCounter(str(fa), k=PIPELINE_K, silent=True,
+                                        device=device).get_counts()
+            t5 = time.perf_counter()
 
     m = len(seqs)
     out = {"phase": "counter", "m": m, "get_counts_s": t1 - t0, "pearson_s": t2 - t1,
-           "long_and_large_k_s": t3 - t2}
+           "long_and_large_k_s": t3 - t2, "get_counts_python_host_s": t5 - t4,
+           "counts_bitwise_python_host": python_counts.tobytes() == counts.tobytes()}
+    if not out["counts_bitwise_python_host"]:
+        raise AssertionError("the counter's native parse and encode give other counts "
+                             "than the Python ones")
     if sim.shape != (m, m) or not np.isfinite(sim).all():
         raise AssertionError(f"counter pearson: shape {sim.shape}, finite "
                              f"{np.isfinite(sim).all()}")
@@ -650,13 +715,19 @@ def stats_breakdown(device, scale, state, seqs, bkg, fitres, p_emp):
     """Where the time of find_dist, find_pval and adj_pval goes: their parts,
     each timed apart on the host clock (ending in a synchronize) after the
     main-path run, at the main path's sizes."""
-    from seekr_tpu_torch.io.encode import encode_seqs
-    from seekr_tpu_torch.io.fast_csv import write_labeled_csv
+    import os
+
+    import torch
+
+    from seekr_tpu_torch.io.encode import encode_fasta, encode_seqs
+    from seekr_tpu_torch.io.fast_csv import (labeled_csv_bytes, read_labeled_csv,
+                                             write_labeled_csv)
     from seekr_tpu_torch.io.fasta import Reader
     from seekr_tpu_torch.io.stream import stream_pearson
     from seekr_tpu_torch.models.counter import _MAX_ROWS_PER_BUCKET, KmerCounter
     from seekr_tpu_torch.models.pearson import pearson
     from seekr_tpu_torch.ops.ecdf import SortedBackground
+    from seekr_tpu_torch.stats import adj_pval
     from seekr_tpu_torch.stats.fast_cdf import fast_cdf
     from seekr_tpu_torch.stats.find_dist import similarity_triu
     from seekr_tpu_torch.stats.multitest import multipletests
@@ -670,10 +741,22 @@ def stats_breakdown(device, scale, state, seqs, bkg, fitres, p_emp):
         parts[name] = time.perf_counter() - t0
         return result
 
+    # each host step twice where the native library took it over: native first,
+    # then the Python/numpy path it replaced ("_python"), which must agree
     timed("fasta_parse_s", lambda: Reader("corpus.fa").get_seqs())
-    timed("encode_s", lambda: encode_seqs(seqs, STATS_K, max_rows_per_bucket=_MAX_ROWS_PER_BUCKET))
+    timed("encode_s", lambda: encode_fasta("corpus.fa", STATS_K,
+                                           max_rows_per_bucket=_MAX_ROWS_PER_BUCKET))
     counts = timed("counter_s", lambda: KmerCounter(
         "corpus.fa", k=STATS_K, silent=True, device=device).get_counts_device())
+    with python_host_paths():
+        timed("fasta_parse_python_s", lambda: Reader("corpus.fa").get_seqs())
+        timed("encode_python_s", lambda: encode_seqs(
+            seqs, STATS_K, max_rows_per_bucket=_MAX_ROWS_PER_BUCKET))
+        python_counts = timed("counter_python_s", lambda: KmerCounter(
+            "corpus.fa", k=STATS_K, silent=True, device=device).get_counts_device())
+    if not torch.equal(counts, python_counts):
+        raise AssertionError("phase 6 counts: the native parse and encode differ")
+    del python_counts
     timed("blocked_gemm_and_copy_s", lambda: stream_pearson(counts, counts, _Discard(),
                                                             device=device))
     triu = timed("similarity_triu_s", lambda: similarity_triu(counts, device=device))
@@ -686,9 +769,29 @@ def stats_breakdown(device, scale, state, seqs, bkg, fitres, p_emp):
     timed("ecdf_s", lambda: SortedBackground(bkg).pvals(sim))
     name, _, params = fitres[0]
     timed("fast_cdf_s", lambda: fast_cdf(name, params, sim))
-    timed("multipletests_s", lambda: multipletests(p_emp.values, method="fdr_bh"))
+    native_mt = timed("multipletests_s", lambda: multipletests(p_emp.values, method="fdr_bh"))
+    native_adj = timed("adj_pval_s", lambda: adj_pval(p_emp, "fdr_bh").values)
+    with python_host_paths():
+        numpy_mt = timed("multipletests_python_s", lambda: multipletests(p_emp.values,
+                                                                           method="fdr_bh"))
+        numpy_adj = timed("adj_pval_python_s", lambda: adj_pval(p_emp, "fdr_bh").values)
+    same = {"multipletests_bitwise_numpy": all(
+                a.tobytes() == b.tobytes() for a, b in zip(native_mt[:2], numpy_mt[:2])),
+            "adj_pval_bitwise_numpy": native_adj.tobytes() == numpy_adj.tobytes()}
+    del native_mt, numpy_mt, native_adj, numpy_adj
     timed("write_pvals_csv_s", lambda: write_labeled_csv(
         "pvals.csv", p_emp.values, p_emp.index, p_emp.columns))
+    timed("write_pvals_csv_python_s", lambda: Path("pvals_python.csv").write_bytes(
+        labeled_csv_bytes(p_emp.values, p_emp.index, p_emp.columns)))
+    same["pvals_csv_bytes_equal_python"] = (Path("pvals.csv").read_bytes()
+                                            == Path("pvals_python.csv").read_bytes())
+    os.unlink("pvals_python.csv")
+    timed("read_pvals_csv_f32_s", lambda: read_labeled_csv("pvals.csv", dtype=np.float32))
+    timed("read_pvals_csv_f64_python_s", lambda: read_labeled_csv("pvals.csv"))
+    parts.update(same)
+    failed = [name for name, ok in same.items() if not ok]
+    if failed:
+        raise AssertionError(f"native host paths differ from the Python ones: {failed}")
     if is_cuda(device):
         # the device's busy time inside whole calls, from a profiler trace
         from seekr_tpu_torch.stats import find_dist, find_pval
@@ -1315,8 +1418,241 @@ def segmented_bitwise(svc, rng, normalize_counts_segmented) -> bool:
     return True
 
 
+LEIDEN_CUTOFF = 0.2     # -pco of the run: the reference's graphs use such cutoffs
+LEIDEN_MUTATION = 0.10  # share of a member's bases that differ from its founder
+LEIDEN_QUANTILES = (0.0, 0.001, 0.01, 0.5, 0.99, 0.999, 1.0)
+
+
+def family_corpus(families: int, members: int, cap: int, seed: int):
+    """Planted families of transcripts: (sequences, family of each).
+
+    Each founder's length follows phase 3's law (lognormal, median 1.4 kb,
+    200..``cap``) and its bases are uniform; each member is its founder with
+    ``LEIDEN_MUTATION`` of its bases, drawn at random, replaced by one of the
+    three other bases."""
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.lognormal(np.log(1400.0), 0.6, size=families), 200, cap)
+    seqs = []
+    for n in lengths.astype(int):
+        block = np.repeat(rng.integers(0, 4, size=(1, n), dtype=np.int8), members, axis=0)
+        hit = rng.random(block.shape) < LEIDEN_MUTATION
+        block[hit] = (block[hit] + rng.integers(1, 4, size=int(hit.sum()), dtype=np.int8)) % 4
+        seqs += [DIGIT2CHAR[row].tobytes().decode() for row in block]
+    return seqs, np.repeat(np.arange(families), members)
+
+
+def same_partition(a, b) -> bool:
+    """Two memberships are one partition up to relabeling: their label pairs
+    form a bijection."""
+    pairs = set(zip(np.asarray(a).tolist(), np.asarray(b).tolist()))
+    return len(pairs) == len(set(np.asarray(a).tolist())) == len(set(np.asarray(b).tolist()))
+
+
+def adjusted_rand_index(a, b) -> float:
+    """Hubert and Arabie's adjusted Rand index of two memberships."""
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    table = np.zeros((ai.max() + 1, bi.max() + 1), dtype=np.int64)
+    np.add.at(table, (ai, bi), 1)
+
+    def pairs(x):
+        return (x * (x - 1) / 2).sum()
+
+    both, rows, cols = pairs(table), pairs(table.sum(axis=1)), pairs(table.sum(axis=0))
+    expected = rows * cols / pairs(np.array([len(a)]))
+    top = (rows + cols) / 2
+    return 1.0 if top == expected else float((both - expected) / (top - expected))
+
+
+def edge_pairs(mat, cutoff):
+    """Flat strict-upper-triangle indices of the reference's edge rule:
+    r >= cutoff and r > 0."""
+    m = mat.shape[0]
+    keep = np.triu((mat >= cutoff) & (mat > 0), k=1)
+    i, j = np.nonzero(keep)
+    return i.astype(np.int64) * m + j
+
+
+def phase_leiden(device, scale, state):
+    """Communities: ``kmer_leiden`` on planted families at the reference's
+    background size, dense and streamed, with its checks and a stage breakdown."""
+    import importlib
+    import os
+
+    import torch
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.models.pearson import pearson
+    from seekr_tpu_torch.ops import count_cuda
+
+    leiden = importlib.import_module("seekr_tpu_torch.graph.kmer_leiden")
+    k, n_fam, members = scale.leiden_k, scale.leiden_families, scale.leiden_members
+    seqs, truth = family_corpus(n_fam, members, scale.corpus_cap, state["seed"] + 8)
+    m = len(seqs)
+    out = {"phase": "leiden", "card": state.get("smi"), "m": m, "k": k, "families": n_fam,
+           "members": members, "mutation": LEIDEN_MUTATION, "cutoff": LEIDEN_CUTOFF,
+           "native_library": state["native_library"],
+           "native_build_s": state["native_build_s"]}
+    build_dir = Path(__file__).resolve().parent / "seekr_tpu_torch" / "_build"
+    if Path(state["native_library"]).parent != build_dir:
+        raise AssertionError(f"the host library {state['native_library']} is not the "
+                             f"port's own (under {build_dir})")
+    run = dict(pearsoncutoff=LEIDEN_CUTOFF, setseed=True, device=device)
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # set-up: the user's files, the norm vectors from the corpus itself
+            write_fasta_file("families.fa", seqs)
+            write_fasta_file("head.fa", seqs[:scale.leiden_dense_export])
+            cli.main(["norm_vectors", "families.fa", "-k", str(k), "-mv", "mean.npy",
+                      "-sv", "std.npy", "--device", str(device)])
+            vectors = ("mean.npy", "std.npy")
+
+            # -- the main path: dense, streamed with its Gephi export, and the
+            # dense export on the head of the corpus --------------------------
+            count_cuda.reset_launches()
+            if is_cuda(device):
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            membership = leiden.kmer_leiden("families.fa", *vectors, k, **run)
+            out["kmer_leiden_dense_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            streamed = leiden.kmer_leiden("families.fa", *vectors, k, stream=True,
+                                          csvfile="streamed", **run)
+            out["kmer_leiden_streamed_with_export_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            head = leiden.kmer_leiden("head.fa", *vectors, k, stream=False, csvfile="dense",
+                                      **run)
+            out["kmer_leiden_dense_export_head_s"] = time.perf_counter() - t0
+            if is_cuda(device):
+                out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
+            read_launches(state, "leiden")
+            if is_cuda(device) and count_cuda.launches["count_kmers_smem"] == 0:
+                raise AssertionError("kmer_leiden never launched count_kmers_smem")
+
+            # -- stage by stage (not counted) ----------------------------------
+            stages = {}
+
+            def timed(name, fn):
+                t0 = time.perf_counter()
+                result = fn()
+                sync(device)
+                stages[name] = time.perf_counter() - t0
+                return result
+
+            counter = KmerCounter("families.fa", mean=vectors[0], std=vectors[1], k=k,
+                                  silent=True, device=device)
+            counts = timed("counter_s", counter.get_counts_device)
+            stages["count_device_ms"] = count_device_ms(seqs, k, 1, device, scale.reps)
+            sim = timed("pearson_s", lambda: pearson(counts, counts, device=device))
+            stages["gemm_device_ms"] = gemm_device_ms(counts, counts, device, 3, 4096)
+            if is_cuda(device):
+                square = torch.empty((m, m), device=device)
+                sync(device)
+                t0 = time.perf_counter()
+                square.cpu()
+                stages["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+                del square
+
+            # checks on the unthresholded similarity
+            ref = f64_pearson_device(counts, counts)
+            out["sim_max_abs_vs_f64"] = float(np.abs(sim - ref).max())
+            near = np.abs(ref - LEIDEN_CUTOFF) <= 1e-4
+            out["pairs_within_1e-4_of_cutoff"] = int(np.triu(near, k=1).sum())
+            got_edges, ref_edges = edge_pairs(sim, LEIDEN_CUTOFF), edge_pairs(ref, LEIDEN_CUTOFF)
+            flips = np.setxor1d(got_edges, ref_edges)
+            out["edges"], out["edges_f64"] = len(got_edges), len(ref_edges)
+            out["edge_flips_vs_f64"] = len(flips)
+            out["edge_flips_away_from_cutoff"] = int((~near.ravel()[flips]).sum())
+            del ref, near
+            same_family = np.triu(truth[:, None] == truth[None, :], k=1)
+            within = sim[same_family]
+            rng = np.random.default_rng(state["seed"] + 9)
+            ii, jj = rng.integers(0, m, size=(2, 1_000_000))
+            across = sim[ii, jj][truth[ii] != truth[jj]]
+            out["r_within_quantiles"] = dict(zip(map(str, LEIDEN_QUANTILES),
+                                                 np.quantile(within, LEIDEN_QUANTILES).tolist()))
+            out["r_across_quantiles"] = dict(zip(map(str, LEIDEN_QUANTILES),
+                                                 np.quantile(across, LEIDEN_QUANTILES).tolist()))
+            out["within_pairs_below_cutoff"] = int((within < LEIDEN_CUTOFF).sum())
+            out["sampled_across_pairs_at_or_above_cutoff"] = int((across >= LEIDEN_CUTOFF).sum())
+            del same_family, within, across
+
+            def threshold():
+                sim[sim < LEIDEN_CUTOFF] = 0
+                np.fill_diagonal(sim, 0)
+
+            timed("threshold_s", threshold)
+            src, dst = timed("edge_extraction_s", lambda: np.nonzero(np.triu(sim > 0, k=1)))
+            w = sim[src, dst]
+            again = timed("leiden_s", lambda: leiden._run_leiden(
+                src, dst, w, m, "RBERVertexPartition", 1.0, True))
+            names = [f"t{i}" for i in range(m)]
+            timed("export_s", lambda: leiden.export_gephi_csv_edges(
+                names, again, src, dst, w, "breakdown"))
+            s_src, s_dst, _ = timed("streamed_edges_s", lambda: leiden.sparse_similarity_edges(
+                counts, LEIDEN_CUTOFF, device=device))
+            del sim
+            if is_cuda(device):
+                stages["profiled_wall_s"], stages["device_busy_s"] = profiled_busy(
+                    device, lambda: leiden.kmer_leiden("families.fa", *vectors, k, **run))
+                if stages["device_busy_s"] is not None:
+                    stages["device_busy_share"] = (stages["device_busy_s"]
+                                                   / stages["profiled_wall_s"])
+            out["stages"] = stages
+
+            # -- checks ------------------------------------------------------
+            out["families_found"] = len(set(membership.tolist()))
+            out["recovers_families"] = same_partition(membership, truth)
+            if not out["recovers_families"]:
+                out["adjusted_rand_index"] = adjusted_rand_index(membership, truth)
+            out["seeded_runs_identical"] = bool(np.array_equal(membership, again))
+            dense_set = set(zip(src.tolist(), dst.tolist()))
+            streamed_set = set(zip(s_src.tolist(), s_dst.tolist()))
+            differ = dense_set ^ streamed_set
+            out["streamed_edge_differences"] = len(differ)
+            r64 = None
+            if differ:  # only GEMM-tiling ulps at the cutoff may tell the two apart
+                r64 = np.array([f64_pearson_device(counts[i:i + 1], counts[j:j + 1])[0, 0]
+                                     for i, j in differ])
+            out["streamed_edges_match"] = r64 is None or bool(
+                (np.abs(r64 - LEIDEN_CUTOFF) <= 1e-5).all())
+            out["streamed_same_partition"] = same_partition(streamed, membership)
+            nodes = Path("streamed_nodes_leiden.csv").read_text().splitlines()
+            edges = Path("streamed_edges_leiden.csv").read_text().splitlines()
+            out["streamed_export_rows"] = [len(nodes) - 1, len(edges) - 1]
+            head_m = scale.leiden_dense_export
+            dense_edges = Path("dense_edges_leiden.csv").read_text().splitlines()
+            out["dense_export_head_rows"] = [
+                len(Path("dense_nodes_leiden.csv").read_text().splitlines()) - 1,
+                len(dense_edges) - 1]
+            out["dense_export_head_communities"] = len(set(head.tolist()))
+        finally:
+            os.chdir(home)
+
+    log(json.dumps(out))
+    state["leiden"] = out
+    failures = [name for name, ok in (
+        ("similarity within 1e-4 of float64", out["sim_max_abs_vs_f64"] <= 1e-4),
+        ("edge set equal to float64's away from the cutoff",
+         out["edge_flips_away_from_cutoff"] == 0),
+        ("the planted families, exactly", out["recovers_families"]),
+        ("two seeded runs identical", out["seeded_runs_identical"]),
+        ("streamed edges equal away from the cutoff", out["streamed_edges_match"]),
+        ("streamed partition equal", out["streamed_same_partition"]),
+        ("streamed export rows", out["streamed_export_rows"] == [m, len(streamed_set)]),
+        ("dense export rows", out["dense_export_head_rows"]
+         == [head_m, head_m * (head_m - 1) // 2]),
+    ) if not ok]
+    if failures:
+        raise AssertionError(f"leiden checks failed: {failures}")
+
+
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
-          phase_stats, phase_serve)
+          phase_stats, phase_serve, phase_leiden)
 
 
 def run(device, scale, seed: int = 0) -> dict:

@@ -14,6 +14,9 @@ and the statistics chain, run with PyTorch on one CUDA card:
     (``stats``)
   * the warm-resident service ``SeekrService`` and its socket server and
     client (``serve``)
+  * Leiden communities with Gephi CSVs, ``kmer_leiden`` (``graph``)
+  * the host C++ library -- FASTA parse and encode, CSV, sorts and FDR, the
+    Leiden engine -- built by g++ at first use (``native``)
   * the command line: ``python -m seekr_tpu_torch.cli <command>`` (``cli``)
 
 Entry points take ``device=None``, which means the first CUDA card; without one
@@ -34,6 +37,7 @@ _LAZY_EXPORTS = {
     "find_pval": ("seekr_tpu_torch.stats.find_pval", "find_pval"),
     "adj_pval": ("seekr_tpu_torch.stats.adj_pval", "adj_pval"),
     "multipletests": ("seekr_tpu_torch.stats.multitest", "multipletests"),
+    "kmer_leiden": ("seekr_tpu_torch.graph.kmer_leiden", "kmer_leiden"),
 }
 
 __all__ = [*_LAZY_EXPORTS, "__version__"]

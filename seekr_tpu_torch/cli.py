@@ -1,11 +1,12 @@
 """The port's command line: ``python -m seekr_tpu_torch.cli <command> [args]``.
 
-Eight commands of ``seekr_tpu/cli.py``, with its flags and defaults and the same
+Nine commands of ``seekr_tpu/cli.py``, with its flags and defaults and the same
 file contracts (counts CSV/npy, mean/std npy, pearson npy/csv, fitres CSV,
-p-value CSV, corpus snapshot npz, query CSV):
+p-value CSV, corpus snapshot npz, query CSV, Gephi nodes/edges CSVs):
 
   main path    kmer_counts, norm_vectors, pearson
   statistics   find_dist, find_pval, adj_pval
+  communities  kmer_leiden
   serving      serve, query
 
 One flag is the port's own: ``--device`` (default: the first CUDA card; ``cpu``
@@ -14,8 +15,8 @@ without a card and without ``--device cpu`` a command raises instead of moving
 to the CPU on its own; adj_pval, which runs on the host, holds the same rule.
 Not in this port yet, and refused with an error that names the slice they come
 with: ``adj_pval -bi/-bo/--symmetric`` (the streamed correction), ``find_dist
--pf`` (the fit plot), ``-dp``/``-kp`` above 1 and serve's multi-host flags (the
-device mesh).  A bare command prints its help.
+-pf`` and ``kmer_leiden -pn`` (the plots), ``-dp``/``-kp`` above 1 and serve's
+multi-host flags (the device mesh).  A bare command prints its help.
 """
 
 from __future__ import annotations
@@ -89,6 +90,17 @@ correct the full flattened matrix.  Methods: bonferroni, sidak, holm,
 holm-sidak, simes-hochberg, hommel, fdr_bh, fdr_by, fdr_tsbh, fdr_tsbky.
 
   $ python -m seekr_tpu_torch.cli adj_pval pvals.csv fdr_bh -o adj_pvals
+"""
+
+KMER_LEIDEN_DOC = """
+Leiden community detection over fasta sequences: counts (normalized by the
+given mean/std vectors) and self-Pearson on the card, edges kept above
+-pco pearsoncutoff, then the Leiden algorithm (the host C++ engine; six
+partition types) and Gephi-ready nodes/edges CSVs (-cf).  The network plot
+(-pn) is not in this port yet.
+
+  $ python -m seekr_tpu_torch.cli kmer_leiden rnas.fa mean_4.npy std_4.npy 4 -cf net
+  $ python -m seekr_tpu_torch.cli kmer_leiden rnas.fa mean_4.npy std_4.npy 4 -a CPMVertexPartition -r 1.5 -sd -pco 0.1 -cf net
 """
 
 SERVE_DOC = """
@@ -213,7 +225,9 @@ def _run_pearson(counts1, counts2, outfile, binary_input, binary_output, device)
         counts1, counts2 = np.load(counts1), np.load(counts2)
         names1, names2 = range(counts1.shape[0]), range(counts2.shape[0])
     else:
-        labeled1, labeled2 = read_labeled_csv(counts1), read_labeled_csv(counts2)
+        # float32, as seekr_tpu's native reader gives them (the GEMM's type)
+        labeled1 = read_labeled_csv(counts1, dtype=np.float32)
+        labeled2 = read_labeled_csv(counts2, dtype=np.float32)
         counts1, counts2 = labeled1.values, labeled2.values
         names1, names2 = labeled1.index, labeled2.index
 
@@ -432,6 +446,56 @@ def console_adj_pval(argv=None):
              args.outputname)
 
 
+# -- kmer_leiden -------------------------------------------------------------
+
+def console_kmer_leiden(argv=None):
+    from seekr_tpu_torch import native
+
+    parser = _parser(KMER_LEIDEN_DOC)
+    parser.add_argument("fasta", help="fasta file with unique headers.")
+    parser.add_argument("mean_path", help="normalization mean vector (.npy).")
+    parser.add_argument("std_path", help="normalization std vector (.npy).")
+    parser.add_argument("kmer", help="k-mer length (must match the vectors).")
+    parser.add_argument("-a", "--algo", default="RBERVertexPartition",
+                        choices=list(native.ALGORITHMS),
+                        help="Leiden partition quality function.")
+    parser.add_argument("-r", "--rs", default=1.0, help="resolution parameter.")
+    parser.add_argument("-pco", "--pearsoncutoff", default=0.0,
+                        help="zero out r values below this cutoff.")
+    parser.add_argument("-sd", "--setseed", action="store_true",
+                        help="set seed for reproducible communities.")
+    parser.add_argument("-ec", "--edgecolormethod", default="gradient",
+                        choices=["gradient", "threshold"], help="edge coloring method.")
+    parser.add_argument("-et", "--edgethreshold", default=0.1,
+                        help="threshold for -ec threshold.")
+    parser.add_argument("-lfs", "--labelfontsize", default=12,
+                        help="node label font size.")
+    parser.add_argument("-pn", "--plotname", default=None,
+                        help="plot output path (not in this port yet: the viz slice).")
+    parser.add_argument("-cf", "--csvfile", default=None,
+                        help="Gephi nodes/edges csv prefix.")
+    parser.add_argument("--stream", default=None, choices=["auto", "on", "off"],
+                        help="extract the thresholded edge set tile by tile instead "
+                             "of holding the [m, m] similarity matrix ('auto' streams "
+                             "above ~2.5B cells, m~50k; the Gephi edges file then "
+                             "holds the detected edges).")
+    parser.add_argument("-dp", "--data_parallel", default=None, type=int,
+                        help="devices for the similarity GEMM (above 1 not in this "
+                             "port yet).")
+    args = _parse_args_or_exit(parser, argv)
+    _refuse_mesh(parser, args, "data_parallel")
+    if args.plotname:
+        parser.error("-pn/--plotname: the network plot comes with the port's viz slice")
+
+    from seekr_tpu_torch.graph import kmer_leiden
+
+    stream = {None: None, "auto": None, "on": True, "off": False}[args.stream]
+    kmer_leiden(args.fasta, args.mean_path, args.std_path, int(args.kmer), args.algo,
+                float(args.rs), float(args.pearsoncutoff), args.setseed,
+                args.edgecolormethod, float(args.edgethreshold), int(args.labelfontsize),
+                None, args.csvfile, stream=stream, device=_device(args))
+
+
 # -- serve / query -----------------------------------------------------------
 
 def console_serve(argv=None):
@@ -621,6 +685,7 @@ COMMANDS = {
     "find_dist": console_find_dist,
     "find_pval": console_find_pval,
     "adj_pval": console_adj_pval,
+    "kmer_leiden": console_kmer_leiden,
     "serve": console_serve,
     "query": console_query,
 }

@@ -1,8 +1,11 @@
 """Tokenize nucleotide strings into dense device-ready arrays.
 
-Port of the Python path of ``seekr_tpu/io/encode.py``.  Each base is encoded to a
-2-bit digit once on the host and padded ``[rows, L]`` int8 arrays go to the device,
-where k-mer window codes are formed and histogrammed (seekr_tpu_torch.ops.count).
+Port of ``seekr_tpu/io/encode.py``.  Each base is encoded to a 2-bit digit once on
+the host and padded ``[rows, L]`` int8 arrays go to the device, where k-mer window
+codes are formed and histogrammed (seekr_tpu_torch.ops.count).  ``encode_fasta``
+parses and encodes a FASTA file with the host C++ library (``native``) when the
+file's bytes cannot make it differ from the Python reader, and with the Python
+path otherwise.
 
 Column-order contract: the reference enumerates k-mers as
 ``itertools.product("AGTC", repeat=k)`` (seekr/kmer_counts.py:100,121-122), i.e.
@@ -153,3 +156,116 @@ def _py_encode_chunk(seqs, lut):
             out[r, : raw.size] = lut[raw]
         return out
     return encode_chunk
+
+
+_GATE_CACHE: dict = {}  # (abspath, size, mtime_ns) -> verdict
+
+
+def _native_parse_is_safe(path: str) -> bool:
+    """Cheap byte-level gate: may the C++ parser's output differ from the
+    Python reader's?
+
+    False on any '\\r' (Python's universal newlines treat a lone CR as a line
+    break; the C++ parser splits on '\\n' only), any non-ASCII byte
+    (``str.strip()`` removes Unicode whitespace the C++ byte trim keeps), a
+    first non-empty line that is not a header (the C++ parser drops leading
+    sequence lines), or a file that is not there.  One sequential pass over the
+    raw bytes, its verdict memoized per (path, size, mtime_ns): the counter runs
+    the gate twice per file (``Reader``, then ``encode_fasta``).
+    """
+    import os as _os
+
+    try:
+        st = _os.stat(path)
+        cache_key = (_os.path.abspath(path), st.st_size, st.st_mtime_ns)
+    except OSError:
+        return False
+    cached = _GATE_CACHE.get(cache_key)
+    if cached is not None:
+        return cached
+    verdict = _gate_scan(path)
+    if len(_GATE_CACHE) > 64:
+        _GATE_CACHE.clear()
+    _GATE_CACHE[cache_key] = verdict
+    return verdict
+
+
+def _gate_scan(path: str) -> bool:
+    first_line_ok = None
+    carry = b""
+    try:
+        with open(path, "rb") as fh:
+            while True:  # chunked: no whole-file read
+                chunk = fh.read(8 << 20)
+                if not chunk:
+                    break
+                if b"\r" in chunk or not chunk.isascii():
+                    return False
+                if first_line_ok is None:
+                    buf = carry + chunk
+                    i, n = 0, len(buf)
+                    while i < n:
+                        j = buf.find(b"\n", i)
+                        if j == -1:
+                            carry = buf[i:]
+                            break
+                        line = buf[i:j].strip()
+                        if line:
+                            first_line_ok = line.startswith(b">")
+                            if not first_line_ok:
+                                return False
+                            break
+                        i = j + 1
+    except OSError:
+        return False
+    if first_line_ok is None:  # no newline seen: judge the remainder
+        first_line_ok = carry.strip().startswith(b">")
+    return bool(first_line_ok)
+
+
+def encode_fasta(
+    path: str,
+    k: int,
+    alphabet: str = ALPHABET_AGTC,
+    min_bucket_len: int = 256,
+    row_multiple: int = 8,
+    max_rows_per_bucket: Optional[int] = None,
+    include_ids: Optional[Sequence[int]] = None,
+) -> EncodedSeqs:
+    """Encode a FASTA file into length buckets: the buckets ``encode_seqs``
+    gives for the file's sequences, bit for bit.
+
+    An AGTC file that passes ``_native_parse_is_safe`` is parsed once by the C++
+    reader and each padded bucket encoded by its multithreaded batch encoder,
+    with no Python string per sequence.  Another alphabet, a file the gate
+    refuses, or a parse with no record or an empty sequence (where the Python
+    reader's semantics must decide) takes the Python path.  ``include_ids``
+    restricts the buckets to those records (row_ids stay file-order indices;
+    ``lengths``/``n_seqs`` still describe the whole file): the counter keeps
+    long sequences out of the buckets this way.
+    """
+    if alphabet == ALPHABET_AGTC and _native_parse_is_safe(path):
+        from seekr_tpu_torch import native
+
+        with native.NativeFasta(path) as nf:
+            lengths = nf.lengths().astype(np.int32)
+            if len(lengths) > 0 and (lengths > 0).all():
+                buckets = _assemble_buckets(lengths, k, min_bucket_len, row_multiple,
+                                            max_rows_per_bucket, nf.encode_batch,
+                                            include=include_ids)
+                return EncodedSeqs(buckets=buckets, n_seqs=len(lengths),
+                                   alphabet=alphabet, lengths=lengths)
+
+    from seekr_tpu_torch.io.fasta import Reader
+
+    seqs = Reader(path).get_seqs()
+    if include_ids is None:
+        return encode_seqs(seqs, k, alphabet, min_bucket_len=min_bucket_len,
+                           row_multiple=row_multiple,
+                           max_rows_per_bucket=max_rows_per_bucket)
+    lengths = np.array([len(s) for s in seqs], dtype=np.int64)
+    buckets = _assemble_buckets(lengths, k, min_bucket_len, row_multiple,
+                                max_rows_per_bucket, _py_encode_chunk(seqs, base_lut(alphabet)),
+                                include=include_ids)
+    return EncodedSeqs(buckets=buckets, n_seqs=len(seqs), alphabet=alphabet,
+                       lengths=lengths)

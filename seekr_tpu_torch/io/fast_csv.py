@@ -10,16 +10,24 @@ seekr_tpu's pandas and native paths produce:
   * raw (``write_raw_csv``): ``np.savetxt(path, matrix, delimiter=',',
     fmt='%1.6f')``, which it calls.
 
-Labeled cells are formatted a block at a time with numpy, never with Python
-``%`` per cell: a 13,000-column p-value matrix has 13 M cells.  ``read_labeled_csv``
-reads the labeled form back into a ``LabeledMatrix``, the port's stand-in for
-the DataFrame of ``pd.read_csv(path, index_col=0)``.
+A float32 or float64 matrix is written by the host C++ library's multithreaded
+formatter (``native.write_csv_f32``/``f64``, mode 0 and ``'%1.6f'`` mode 1);
+other inputs, and ``labeled_csv_bytes``, are formatted here a block at a time
+with numpy, never with Python ``%`` per cell: a 13,000-column p-value matrix has
+13 M cells.  Both give the same bytes.  Row labels are quoted here for both, so
+an empty or NaN label is an empty cell as pandas writes it (seekr_tpu's native
+writer quotes it).  ``read_labeled_csv`` reads the labeled form back into a
+``LabeledMatrix``, the port's stand-in for the DataFrame of
+``pd.read_csv(path, index_col=0)``; float32 values of a regular file come from
+the C++ parser.
 """
 
 from __future__ import annotations
 
 import csv
 import io
+import os
+import stat
 
 import numpy as np
 
@@ -136,8 +144,36 @@ def labeled_csv_bytes(matrix, index, columns) -> bytes:
                                                        [_quote(i) for i in index])
 
 
+def native_writes(matrix, labels=None) -> bool:
+    """Whether the C++ formatter writes ``matrix``: a non-empty 2-D float32 or
+    float64 matrix whose (already quoted) labels hold no NUL byte, which a C
+    string cannot carry."""
+    return (matrix.ndim == 2 and matrix.dtype in (np.float32, np.float64)
+            and matrix.size > 0
+            and (labels is None or not any("\0" in label for label in labels)))
+
+
+def write_native_rows(path, matrix, labels=None, header=None, fmt: str = "%s",
+                      append: bool = False) -> None:
+    """Rows of ``matrix`` through the C++ formatter: ``'%s'`` is the shortest
+    repr (mode 0), ``'%1.6f'`` float32's ``np.savetxt`` cells (mode 1)."""
+    from seekr_tpu_torch import native
+
+    if matrix.dtype == np.float64 and fmt == "%s":
+        native.write_csv_f64(path, matrix, header_line=header, row_label_cells=labels,
+                             append=append)
+    else:
+        native.write_csv_f32(path, matrix, header_line=header, row_label_cells=labels,
+                             mode={"%s": 0, "%1.6f": 1}[fmt], append=append)
+
+
 def write_labeled_csv(path, matrix, index, columns) -> None:
     """Byte-identical to ``pd.DataFrame(matrix, index, columns).to_csv``."""
+    matrix, index, columns = np.asarray(matrix), list(index), list(columns)
+    labels = [_quote(i) for i in index]
+    if native_writes(matrix, labels) and matrix.shape == (len(labels), len(columns)):
+        write_native_rows(path, matrix, labels, header_line(columns))
+        return
     data = labeled_csv_bytes(matrix, index, columns)
     with open(path, "wb") as fh:
         fh.write(data)
@@ -145,8 +181,12 @@ def write_labeled_csv(path, matrix, index, columns) -> None:
 
 def write_raw_csv(path, matrix) -> None:
     """``np.savetxt(path, matrix, delimiter=',', fmt='%1.6f')``: seekr_tpu's
-    raw form, written by numpy itself."""
-    np.savetxt(path, np.asarray(matrix), delimiter=",", fmt="%1.6f")
+    raw form, through the C++ formatter for float32 and numpy otherwise."""
+    matrix = np.asarray(matrix)
+    if matrix.dtype == np.float32 and native_writes(matrix):
+        write_native_rows(path, matrix, fmt="%1.6f")
+        return
+    np.savetxt(path, matrix, delimiter=",", fmt="%1.6f")
 
 
 # -- reader ------------------------------------------------------------------
@@ -210,10 +250,44 @@ def _parse_values(texts: list, n_cols: int) -> np.ndarray:
     return cells.astype(np.float64).reshape(len(texts), n_cols)
 
 
-def read_labeled_csv(path) -> LabeledMatrix:
+def _unquote(cell: str) -> str:
+    """One still-quoted CSV cell, unquoted."""
+    row = next(iter(csv.reader([cell])), [])
+    return row[0] if row else ""
+
+
+def _read_native(path):
+    """(float32 values, header cells, label cells) from the C++ parser, or None
+    where it refuses the file (a row of the wrong width, a cell that is not a
+    number, a header it splits otherwise: the Python reader decides those)."""
+    from seekr_tpu_torch import native
+
+    try:
+        data, header, raw_labels = native.read_csv_f32(path)
+    except OSError:
+        return None
+    head_cells = next(csv.reader([header.rstrip("\r")]), [""])
+    if len(head_cells) - 1 != data.shape[1]:
+        return None
+    return data, head_cells[1:], [_unquote(label) for label in raw_labels]
+
+
+def read_labeled_csv(path, dtype=np.float64) -> LabeledMatrix:
     """``pd.read_csv(path, index_col=0)`` for the labeled float matrices this
-    package writes: float64 values (empty cells are NaN), row labels typed as
-    pandas types them (``_infer_index``), column labels kept as strings."""
+    package writes: ``dtype`` values (empty cells are NaN), row labels typed as
+    pandas types them (``_infer_index``), column labels kept as strings.
+
+    float32 values of a regular file are parsed by the C++ reader, each cell
+    correctly rounded to float32 as seekr_tpu's native reader does; anything
+    else (float64, a pipe, a file the C++ reader refuses) is parsed here in
+    float64.  The C++ reader is never given a FIFO: it would open it, find no
+    size and close it, and the writer's data would be lost.
+    """
+    if np.dtype(dtype) == np.float32 and stat.S_ISREG(os.stat(path).st_mode):
+        parsed = _read_native(path)
+        if parsed is not None:
+            data, columns, labels = parsed
+            return LabeledMatrix(data, _infer_index(labels), columns)
     with open(path, newline="") as fh:
         header = fh.readline().rstrip("\r\n")
         columns = next(csv.reader([header]), [""])[1:]
@@ -231,4 +305,5 @@ def read_labeled_csv(path) -> LabeledMatrix:
                 blocks.append(_parse_values(texts, n_cols))
                 texts = []
         blocks.append(_parse_values(texts, n_cols))
-    return LabeledMatrix(np.concatenate(blocks), _infer_index(labels), columns)
+    return LabeledMatrix(np.concatenate(blocks).astype(dtype, copy=False),
+                         _infer_index(labels), columns)

@@ -1,10 +1,11 @@
 """FASTA ingestion.
 
-Port of the Python path of ``seekr_tpu/io/fasta.py``.  Semantics match the
-reference reader (seekr/fasta_reader.py:41-63): lines are stripped, multi-line
-sequences joined, sequences upper-cased, and file order preserved.  One documented
-deviation, as in seekr_tpu: blank lines are skipped, where the reference's
-``line[0]`` raises IndexError.
+Port of ``seekr_tpu/io/fasta.py``.  Semantics match the reference reader
+(seekr/fasta_reader.py:41-63): lines are stripped, multi-line sequences joined,
+sequences upper-cased, and file order preserved.  One documented deviation, as in
+seekr_tpu: blank lines are skipped, where the reference's ``line[0]`` raises
+IndexError.  A file whose bytes cannot make them differ is parsed by the host C++
+library (``native.NativeFasta``); the Python path here is the semantics.
 """
 
 from __future__ import annotations
@@ -64,8 +65,43 @@ class Reader:
         new_data.append(seq.upper())
         self.data = new_data
 
+    def _native_lines(self) -> Optional[List[str]]:
+        """The C++ parse, or None where it could differ from the Python path.
+
+        The byte-level gate shared with ``encode_fasta``
+        (``io.encode._native_parse_is_safe``) refuses lone-CR line breaks, any
+        non-ASCII byte and leading sequence lines; the checks after the parse
+        refuse a file with no record or an empty sequence (the reference's
+        header-without-a-sequence assertion fires on the Python path) and any
+        CR or untrimmed edge left in a header or a sequence.
+        """
+        from seekr_tpu_torch.io.encode import _native_parse_is_safe
+
+        if not _native_parse_is_safe(self.infasta):
+            return None
+        from seekr_tpu_torch import native
+
+        try:
+            with native.NativeFasta(self.infasta) as nf:
+                headers = nf.headers()
+                seqs = nf.seqs()
+        except OSError:
+            return None
+        if not headers or len(headers) != len(seqs) or any(not s for s in seqs):
+            return None
+        if any("\r" in h or h != h.strip() for h in headers) \
+                or any("\r" in s or s != s.strip() for s in seqs):
+            return None
+        data: List[str] = []
+        for header, seq in zip(headers, seqs):
+            data.append(header)
+            data.append(seq)
+        return data
+
     def get_lines(self) -> List[str]:
         if self.data is None:  # parse once per Reader instance
+            self.data = self._native_lines()
+        if self.data is None:
             self._read_data()
             self._upper_seq_per_line()
         return self.data

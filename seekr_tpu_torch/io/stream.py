@@ -7,7 +7,8 @@ consume [block, m2] row blocks as they come off the device:
   * ``StreamingNpyWriter`` -- a standard .npy, its header written for the full
     shape first and row blocks appended (float32 C order);
   * ``StreamingCsvWriter`` -- labeled (pandas bytes) or raw (``'%1.6f'``) CSV
-    row blocks, formatted with numpy (``io.fast_csv``);
+    row blocks, formatted by the host C++ library or with numpy
+    (``io.fast_csv``);
   * ``ArrayCollector`` and ``TriuCollector`` -- the blocks gathered into one
     array, or only their strict upper triangle.
 
@@ -24,7 +25,8 @@ import os
 
 import numpy as np
 
-from seekr_tpu_torch.io.fast_csv import _quote, format_rows, header_line
+from seekr_tpu_torch.io.fast_csv import (_quote, format_rows, header_line, native_writes,
+                                         write_native_rows)
 from seekr_tpu_torch.ops.pearson import _row_standardize, as_float32, matmul_nt
 from seekr_tpu_torch.utils.device import resolve_device
 
@@ -151,9 +153,10 @@ class StreamingCsvWriter:
 
     Labels take csv's minimal quoting, so names with commas (legal in FASTA
     headers) come out as pandas' ``to_csv`` writes them.  ``'%s'`` writes each
-    float in its shortest repr and NaN as an empty cell, a block at a time with
-    numpy; ``'%1.6f'`` and any other format are applied row by row as
-    ``np.savetxt`` applies them (``io.fast_csv.format_rows``).
+    float in its shortest repr and NaN as an empty cell; ``'%1.6f'`` and any
+    other format are applied as ``np.savetxt`` applies them.  float32 blocks
+    (and float64 ones under ``'%s'``) are appended by the C++ formatter, others
+    by ``io.fast_csv.format_rows``: the same bytes.
 
     Crash-consistent like StreamingNpyWriter: rows accumulate in
     ``<path>.part``; ``close()`` fsyncs and publishes with ``os.replace``.
@@ -183,8 +186,13 @@ class StreamingCsvWriter:
         if self.labeled:
             labels = [_quote(label) for label in
                       self.row_labels[self._row:self._row + block.shape[0]]]
-        with open(self._tmp, "ab") as fh:
-            fh.write(format_rows(block, self.fmt, labels))
+        if native_writes(block, labels) and (
+                self.fmt == "%s" or (self.fmt == "%1.6f" and block.dtype == np.float32)):
+            write_native_rows(self._tmp, np.ascontiguousarray(block), labels,
+                              fmt=self.fmt, append=True)
+        else:
+            with open(self._tmp, "ab") as fh:
+                fh.write(format_rows(block, self.fmt, labels))
         self._row += block.shape[0]
 
     def close(self):

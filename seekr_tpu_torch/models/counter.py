@@ -10,8 +10,9 @@ error messages, with counting and normalization on ``device``:
 
 Deviations from the reference are seekr_tpu's: integer window counts scaled once
 by 1000/(len-k+1); a sequence shorter than k gives a zero row; a non-4-letter
-alphabet counts on the host.  The port encodes with the Python path only (the
-native encoder is a later slice).  ``save`` writes the reference's three forms:
+alphabet counts on the host.  A FASTA file is parsed and encoded by the host C++
+library where ``io.encode.encode_fasta`` allows it, giving the buckets the Python
+encode gives, bit for bit.  ``save`` writes the reference's three forms:
 ``.npy``, labeled CSV and raw ``'%1.6f'`` CSV (``io.fast_csv``).
 """
 
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seekr_tpu_torch.io.encode import encode_seq, encode_seqs, kmer_strings
+from seekr_tpu_torch.io.encode import encode_fasta, encode_seq, encode_seqs, kmer_strings
 from seekr_tpu_torch.io.fast_csv import write_labeled_csv, write_raw_csv
 from seekr_tpu_torch.io.fasta import Reader
 from seekr_tpu_torch.ops.count import (count_kmers_device, count_kmers_host,
@@ -74,6 +75,11 @@ class KmerCounter:
             reader = Reader(infasta)
             self.seqs = reader.get_seqs()
             self.headers = reader.get_headers()
+        # the file path is taken only while ``seqs`` is the list parsed here,
+        # unchanged: the snapshot holds the same string objects, so ``==`` is
+        # O(m) pointer compares and still catches an edit in place
+        self._file_seqs = self.seqs
+        self._file_seqs_snapshot = list(self.seqs) if self.seqs else None
         self.outfile = outfile
         self.k = int(k)
         self.binary = binary
@@ -115,6 +121,24 @@ class KmerCounter:
                 row[int(i)] = float(counts[i])
         return row
 
+    def _encode_from_file(self, include_ids=None):
+        """``encode_fasta`` of ``infasta``, or None when the file no longer
+        holds the records parsed at construction (counting reflects
+        ``self.seqs``, never a later state of the file; a rewrite that keeps
+        every length is not detected)."""
+        try:
+            encoded = encode_fasta(self.infasta, self.k, self.alphabet,
+                                   min_bucket_len=self.min_bucket_len,
+                                   max_rows_per_bucket=_MAX_ROWS_PER_BUCKET,
+                                   include_ids=include_ids)
+        except (OSError, IndexError, ValueError):
+            # IndexError/ValueError: include_ids indexed into a file that shrank
+            return None
+        if encoded.n_seqs != len(self.seqs) or not np.array_equal(
+                np.asarray(encoded.lengths), [len(s) for s in self.seqs]):
+            return None
+        return encoded
+
     def _raw_counts_device(self) -> torch.Tensor:
         """Raw counts-per-kb matrix [m, alpha_len**k] float32 on the device."""
         dev = self.device
@@ -138,10 +162,16 @@ class KmerCounter:
         long_set = set(long_ids)
         short_ids = [i for i in range(m) if i not in long_set]
         if short_ids:
-            encoded = encode_seqs([self.seqs[i] for i in short_ids], self.k,
-                                  self.alphabet, min_bucket_len=self.min_bucket_len,
-                                  max_rows_per_bucket=_MAX_ROWS_PER_BUCKET)
-            id_map = np.asarray(short_ids, dtype=np.int64)
+            encoded, id_map = None, None
+            if (self.infasta is not None and self.seqs is self._file_seqs
+                    and self.seqs == self._file_seqs_snapshot):
+                # long rows, if any, are left out but keep file-order row ids
+                encoded = self._encode_from_file(short_ids if long_ids else None)
+            if encoded is None:
+                encoded = encode_seqs([self.seqs[i] for i in short_ids], self.k,
+                                      self.alphabet, min_bucket_len=self.min_bucket_len,
+                                      max_rows_per_bucket=_MAX_ROWS_PER_BUCKET)
+                id_map = np.asarray(short_ids, dtype=np.int64)
             buckets = encoded.buckets
             if not self.silent:
                 from tqdm import tqdm
@@ -150,7 +180,7 @@ class KmerCounter:
             for bases, lengths, row_ids in buckets:
                 res = count_kmers_device(bases, lengths, self.k, device=dev)
                 dest = np.full(res.shape[0], m, dtype=np.int64)
-                dest[: len(row_ids)] = id_map[row_ids]
+                dest[: len(row_ids)] = row_ids if id_map is None else id_map[row_ids]
                 parts.append((dest, res))
 
         if not parts:

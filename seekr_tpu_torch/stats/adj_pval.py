@@ -16,7 +16,7 @@ import numpy as np
 
 from seekr_tpu_torch.io.fast_csv import LabeledMatrix
 from seekr_tpu_torch.stats.multitest import multipletests
-from seekr_tpu_torch.utils.adj import triu_fill, triu_values
+from seekr_tpu_torch.utils.adj import _native_ok, triu_fill, triu_values
 
 
 def _tiled_symmetric(values: np.ndarray, tile: int = 1024) -> bool:
@@ -25,9 +25,18 @@ def _tiled_symmetric(values: np.ndarray, tile: int = 1024) -> bool:
     Mirror tiles keep both operands cache-resident (a full-matrix transpose
     view is a strided walk over the whole array) and the test exits on the
     first asymmetric tile.  The diagonal compares with itself, so it never
-    decides.
+    decides.  A large float64 matrix takes the host C++ library's tiled,
+    multithreaded test (``native.sym_round5``), the same decision.
     """
     m = values.shape[0]
+    if _native_ok(values, m):
+        from seekr_tpu_torch import native
+
+        try:
+            # rounds tile by tile, the same np.round(x, 5) arithmetic
+            return native.sym_round5(values)
+        except ValueError:  # not square, or the C side ran out of memory
+            pass
     r = np.round(values, 5)
     for i0 in range(0, m, tile):
         a_row = r[i0:i0 + tile]

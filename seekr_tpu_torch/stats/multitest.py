@@ -1,16 +1,31 @@
 """Multiple-comparison p-value corrections (numpy, no statsmodels).
 
-Port of ``seekr_tpu/stats/multitest.py:44-247``, its numpy paths (the native
-sorts come with the port's host code).  A drop-in for
+Port of ``seekr_tpu/stats/multitest.py:22-247``.  A drop-in for
 ``statsmodels.stats.multitest.multipletests`` for the ten methods the reference
 exposes (seekr/adj_pval.py:21-22): bonferroni, sidak, holm-sidak, holm,
 simes-hochberg, hommel, fdr_bh, fdr_by, fdr_tsbh, fdr_tsbky.  Returns the same
 4-tuple ``(reject, pvals_corrected, alphacSidak, alphacBonf)``.
+
+From ``_NATIVE_SORT_MIN`` values up, the sort, the BH/BY scan and the unsort
+scatter run in the host C++ library (``native``), bitwise equal to the numpy
+path; ``SEEKR_TPU_HOST_SORT=numpy`` forces numpy, ``=native`` the library.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# Above this length the sort and the final unsort scatter go through the
+# native multithreaded radix engine (native/src/sortops.cpp): at the size of an
+# all-pairs p-value matrix they dominate the correction's wall time.
+_NATIVE_SORT_MIN = 1 << 16
+
+
+def _use_native(n: int) -> bool:
+    from seekr_tpu_torch.native import host_stats_native_ok
+
+    return host_stats_native_ok(n, _NATIVE_SORT_MIN)
+
 
 _METHOD_ALIASES = {
     "b": "bonferroni", "bonf": "bonferroni", "bonferroni": "bonferroni",
@@ -26,21 +41,39 @@ _METHOD_ALIASES = {
 }
 
 
+def _harmonic_sum(n: int) -> float:
+    """numpy's own pairwise ``sum(1/i)``, so BY is bitwise the same on the
+    native and the numpy paths."""
+    harmonic = np.arange(1.0, n + 1.0)
+    np.reciprocal(harmonic, out=harmonic)
+    return float(harmonic.sum())
+
+
 def _fdr_correct(p_sorted: np.ndarray, alpha: float, by: bool = False):
     """Benjamini-Hochberg / Benjamini-Yekutieli on ascending-sorted p.
 
     Buffer-reusing: the ecdf buffer is built in place and recycled for the
     rejection threshold, and the accumulate/clip run on reversed views of one
-    quotient buffer.  The arithmetic order is statsmodels'.
+    quotient buffer.  The arithmetic order is statsmodels'.  Large vectors take
+    the native suffix-min scan (bitwise the same), unless a NaN sits at the
+    sorted tail: NaN poisons numpy's accumulate, and that is the semantics.
     """
     n = len(p_sorted)
+    if n and _use_native(n) and not np.isnan(p_sorted[-1]):
+        from seekr_tpu_torch import native
+
+        try:
+            corrected, n_reject = native.fdr_sorted(p_sorted, alpha,
+                                                    _harmonic_sum(n) if by else 0.0)
+            reject = np.zeros(n, dtype=bool)
+            reject[:n_reject] = True
+            return reject, corrected
+        except ValueError:  # the C side ran out of memory: numpy's turn
+            pass
     ecdf = np.arange(1.0, n + 1.0)
     ecdf /= n
     if by:
-        harmonic = np.arange(1.0, n + 1.0)
-        np.reciprocal(harmonic, out=harmonic)
-        ecdf /= harmonic.sum()
-        del harmonic
+        ecdf /= _harmonic_sum(n)
     corrected = p_sorted / ecdf
     np.minimum.accumulate(corrected[::-1], out=corrected[::-1])
     np.clip(corrected, 0, 1, out=corrected)
@@ -99,15 +132,39 @@ def multipletests(pvals, alpha: float = 0.05, method: str = "fdr_bh",
     alphac_sidak = 1.0 - (1.0 - alpha) ** (1.0 / n)
     alphac_bonf = alpha / n
 
+    # the FDR pair on unsorted input: one native call sorts, corrects and
+    # unsorts; it reports NaNs back (ValueError), and numpy then decides
+    if (method in ("fdr_bh", "fdr_by") and not is_sorted and not returnsorted
+            and _use_native(n)):
+        from seekr_tpu_torch import native
+
+        try:
+            corrected_full, reject_full, _ = native.fdr_adjust(
+                pvals, alpha, _harmonic_sum(n) if method == "fdr_by" else 0.0)
+            return (reject_full.reshape(shape), corrected_full.reshape(shape),
+                    alphac_sidak, alphac_bonf)
+        except ValueError:
+            pass
+
     if is_sorted:
         order = np.arange(n)
         p_sorted = pvals
     else:
-        # stable: ties keep input order (every method gives tied p-values
-        # the same corrected value, so only tie-boundary `reject` bits,
-        # unused by adj_pval, could depend on it)
-        order = np.argsort(pvals, kind="stable")
-        p_sorted = pvals[order]
+        # stable in both paths: ties keep input order (every method gives tied
+        # p-values the same corrected value, so only tie-boundary `reject`
+        # bits, unused by adj_pval, could depend on it; the native sort also
+        # puts -0.0 before +0.0, which compare equal)
+        order = None
+        if _use_native(n) and not np.isnan(pvals).any():
+            from seekr_tpu_torch import native
+
+            try:
+                order, p_sorted = native.argsort_f64(pvals)
+            except ValueError:
+                order = None
+        if order is None:
+            order = np.argsort(pvals, kind="stable")
+            p_sorted = pvals[order]
 
     if method == "bonferroni":
         corrected = np.clip(p_sorted * n, 0, 1)
@@ -160,9 +217,20 @@ def multipletests(pvals, alpha: float = 0.05, method: str = "fdr_bh",
         return (reject.reshape(shape), corrected.reshape(shape),
                 alphac_sidak, alphac_bonf)
 
-    corrected_full = np.empty_like(corrected)
-    corrected_full[order] = corrected
-    reject_full = np.empty_like(reject)
-    reject_full[order] = reject
+    corrected_full = None
+    if _use_native(n):
+        from seekr_tpu_torch import native
+
+        try:
+            corrected_full, reject_u8 = native.scatter_by_order(corrected, order,
+                                                                flags=reject)
+            reject_full = reject_u8.view(bool)
+        except ValueError:
+            corrected_full = None
+    if corrected_full is None:
+        corrected_full = np.empty_like(corrected)
+        corrected_full[order] = corrected
+        reject_full = np.empty_like(reject)
+        reject_full[order] = reject
     return (reject_full.reshape(shape), corrected_full.reshape(shape),
             alphac_sidak, alphac_bonf)

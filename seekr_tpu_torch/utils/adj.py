@@ -1,12 +1,28 @@
 """Upper-triangle helpers for square similarity and p-value matrices.
 
-Port of ``seekr_tpu/utils/adj.py:28-95``, the numpy paths (the native C++ ones
-come with the port's host code).
+Port of ``seekr_tpu/utils/adj.py:16-95``.  A float64 C-contiguous matrix of
+``_NATIVE_MIN_M`` rows or more is gathered and filled by the host C++ library
+(``native.triu_values_f64``/``triu_fill_f64``), bitwise the numpy path's result;
+``SEEKR_TPU_HOST_SORT`` overrides the size gate as in ``stats.multitest``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# below this edge the numpy row-slice loops win on call overhead
+_NATIVE_MIN_M = 2048
+
+
+def _native_ok(arr, m: int) -> bool:
+    """The gate of the C++ helpers: a C-contiguous float64 array, an edge of
+    ``_NATIVE_MIN_M`` or more (or ``SEEKR_TPU_HOST_SORT``'s word)."""
+    if (not isinstance(arr, np.ndarray) or arr.dtype != np.float64
+            or not arr.flags.c_contiguous):
+        return False
+    from seekr_tpu_torch.native import host_stats_native_ok
+
+    return host_stats_native_ok(m, _NATIVE_MIN_M)
 
 
 def triu_values(mat: np.ndarray) -> np.ndarray:
@@ -17,6 +33,13 @@ def triu_values(mat: np.ndarray) -> np.ndarray:
     gathers one element at a time.
     """
     m = mat.shape[0]
+    if _native_ok(mat, m):
+        from seekr_tpu_torch import native
+
+        try:
+            return native.triu_values_f64(mat)
+        except ValueError:  # not square, or the C side ran out of memory
+            pass
     out = np.empty(m * (m - 1) // 2, dtype=mat.dtype)
     pos = 0
     for i in range(m - 1):
@@ -33,6 +56,13 @@ def triu_fill(m: int, flat: np.ndarray, fill=np.nan) -> np.ndarray:
     triangle becomes ``fill``.  An integer ``flat`` fills a float64 matrix, so
     the default NaN fill is not cast to an integer.
     """
+    if _native_ok(flat, m):
+        from seekr_tpu_torch import native
+
+        try:
+            return native.triu_fill_f64(m, flat, fill=fill)
+        except (ValueError, TypeError):  # a wrong length, a fill not a float
+            pass
     flat = np.asarray(flat)
     dtype = flat.dtype if np.issubdtype(flat.dtype, np.floating) else np.float64
     out = np.full((m, m), fill, dtype=dtype)

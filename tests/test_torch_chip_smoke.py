@@ -39,6 +39,13 @@ def test_phases_rehearse_on_cpu():
     assert served["segmented_bitwise"] and served["grow_within_bitwise"]
     assert served["snapshot_bitwise"] and served["socket_equals_in_process"]
     assert served["burst"]["latency"]["count"] == 8
+    # phase 8 found the planted families, dense and streamed, and the native
+    # host paths of phases 4 and 6 held against the Python ones
+    found = state["leiden"]
+    assert found["recovers_families"] and found["streamed_same_partition"]
+    assert found["families_found"] == chip_smoke.TINY.leiden_families
+    assert state["stats_breakdown"]["adj_pval_bitwise_numpy"]
+    assert state["stats_breakdown"]["pvals_csv_bytes_equal_python"]
 
 
 def test_direct_bh_is_benjamini_hochberg():
@@ -52,6 +59,23 @@ def test_near_background():
     r = np.array([0.10000002, 0.15, 0.2])
     assert chip_smoke.near_background(r, bkg).tolist() == [True, False, True]
     assert chip_smoke.near_background(r, bkg, count=True).tolist() == [1, 0, 2]
+
+
+def test_family_corpus_and_partition_helpers():
+    seqs, truth = chip_smoke.family_corpus(3, 4, 1024, seed=5)
+    again, _ = chip_smoke.family_corpus(3, 4, 1024, seed=5)
+    assert seqs == again and len(seqs) == 12 and truth.tolist() == [0] * 4 + [1] * 4 + [2] * 4
+    for f in range(3):  # each member differs from its founder's length-mates in ~10%
+        a, b = seqs[4 * f], seqs[4 * f + 1]
+        assert len(a) == len(b) and 200 <= len(a) <= 1024
+        assert 0.1 < np.mean(np.frombuffer(a.encode(), np.uint8)
+                             != np.frombuffer(b.encode(), np.uint8)) < 0.3
+    assert chip_smoke.same_partition([0, 0, 1, 2], [5, 5, 3, 4])
+    assert not chip_smoke.same_partition([0, 0, 1, 1], [0, 1, 1, 1])
+    assert chip_smoke.adjusted_rand_index([0, 0, 1, 1], [1, 1, 0, 0]) == 1.0
+    assert chip_smoke.adjusted_rand_index([0, 0, 1, 1], [0, 1, 0, 1]) < 0
+    m = np.array([[1.0, 0.3, 0.1], [0.3, 1.0, 0.2], [0.1, 0.2, 1.0]])
+    assert chip_smoke.edge_pairs(m, 0.2).tolist() == [1, 5]
 
 
 def test_corpus_is_seeded_and_shaped():

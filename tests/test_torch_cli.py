@@ -156,6 +156,8 @@ def test_stats_chain(work, capsys):
     (["find_dist", "b.fa", "-kp", "4"], "multi-GPU slice"),
     (["find_dist", "b.fa", "-fm", "-pf", "plot"], "viz slice"),
     (["find_pval", "a", "b", "m", "s", "3", "f", "-dp", "2"], "multi-GPU slice"),
+    (["kmer_leiden", "a.fa", "m", "s", "3", "-pn", "net"], "viz slice"),
+    (["kmer_leiden", "a.fa", "m", "s", "3", "-dp", "2"], "multi-GPU slice"),
 ])
 def test_later_slices_are_refused(argv, slice_name, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -173,10 +175,35 @@ def test_commands_need_a_card_unless_cpu_is_asked(example_fa, work, monkeypatch,
         cli.main(["adj_pval", "p.csv", "fdr_bh"])
 
 
+@pytest.mark.parametrize("stream", ["off", "on"])
+def test_kmer_leiden_files_match(work, stream):
+    # 5 families of 8: each member its founder with 10% of its bases substituted
+    rng = np.random.default_rng(11)
+    letters = np.array(list("AGTC"))
+    names, seqs = [], []
+    for f in range(5):
+        founder = rng.integers(0, 4, size=int(rng.integers(300, 700)))
+        for j in range(8):
+            s = founder.copy()
+            hit = rng.random(s.size) < 0.1
+            s[hit] = rng.integers(0, 4, size=int(hit.sum()))
+            names.append(f"f{f},{j}" if j == 3 else f"f{f}_{j}")
+            seqs.append("".join(letters[s]))
+    write_fasta("c.fa", names, seqs)
+    cli.main(["norm_vectors", "c.fa", "-k", "4", "-mv", "mean.npy", "-sv", "std.npy"] + CPU)
+    both(["kmer_leiden", "c.fa", "mean.npy", "std.npy", "4", "-pco", "0.2", "-sd",
+          "--stream", stream, "-cf", "{out}"])
+    assert (work / "t_nodes_leiden.csv").read_bytes() == (work / "j_nodes_leiden.csv").read_bytes()
+    t, j = pd.read_csv("t_edges_leiden.csv"), pd.read_csv("j_edges_leiden.csv")
+    assert t[["Source", "Target"]].equals(j[["Source", "Target"]]) and len(t) > 0
+    # the weights are the two float32 GEMMs' values, XLA's and torch's
+    np.testing.assert_allclose(t["Weight"], j["Weight"], rtol=0, atol=1e-4)
+
+
 def test_dispatcher_help_and_unknown(capsys):
     assert cli.main([]) == 0
     out = capsys.readouterr().out
-    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 8
+    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 9
     assert cli.main(["nope"]) == 2
     with pytest.raises(SystemExit) as exc:
         cli.main(["kmer_counts"])  # a bare command prints its help

@@ -247,3 +247,106 @@ def test_read_all_nan_matrix(tmp_path):
     got = fast_csv.read_labeled_csv(tmp_path / "t.csv")
     assert got.shape == (3, 4) and np.isnan(got.values).all()
     assert got.index == [">a", ">b", ">c"]
+
+
+# -- the C++ formatter and parser against the numpy/Python ones ----------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_native_writer_bytes_equal_python_writer(tmp_path, dtype):
+    # the labeled writer goes through the C++ formatter for float32 and float64;
+    # labeled_csv_bytes is the numpy formatter, pandas the reference of both
+    m = matrix(np.random.default_rng(7), len(LABELS), 6, dtype)
+    assert fast_csv.native_writes(m, [fast_csv._quote(label) for label in LABELS])
+    cols = ["c0", "c,1", 2, "3", "q\"r", "z"]
+    fast_csv.write_labeled_csv(tmp_path / "t.csv", m, LABELS, cols)
+    assert read(tmp_path / "t.csv") == fast_csv.labeled_csv_bytes(m, LABELS, cols)
+    for nan_label in (np.nan, ""):  # pandas writes both as an empty cell
+        labels = [nan_label] + LABELS[1:]
+        fast_csv.write_labeled_csv(tmp_path / "n.csv", m, labels, cols)
+        pd.DataFrame(m, index=labels, columns=cols).to_csv(tmp_path / "p.csv")
+        assert read(tmp_path / "n.csv") == read(tmp_path / "p.csv")
+
+
+def test_native_raw_writer_bytes_equal_savetxt(tmp_path):
+    m = fixed6_values(np.random.default_rng(8))
+    assert fast_csv.native_writes(m)
+    fast_csv.write_raw_csv(tmp_path / "t.csv", m)
+    np.savetxt(tmp_path / "n.csv", m, delimiter=",", fmt="%1.6f")
+    assert read(tmp_path / "t.csv") == read(tmp_path / "n.csv")
+
+
+def test_native_reader_equals_python_reader(tmp_path):
+    m = matrix(np.random.default_rng(9), len(LABELS), 5)
+    fast_csv.write_labeled_csv(tmp_path / "t.csv", m, LABELS, list("vwxyz"))
+    got = fast_csv.read_labeled_csv(tmp_path / "t.csv", dtype=np.float32)
+    assert fast_csv._read_native(tmp_path / "t.csv") is not None
+    want = fast_csv.read_labeled_csv(tmp_path / "t.csv")
+    assert got.values.dtype == np.float32 and got.values.tobytes() == m.tobytes()
+    # the float64 parse of a float32's shortest repr rounds back to that float32
+    assert want.values.astype(np.float32).tobytes() == got.values.tobytes()
+    assert got.columns == want.columns
+    for a, b in zip(got.index, want.index):
+        assert a == b or (a != a and b != b)
+    # a file the C++ parser refuses is read here, as float32 all the same
+    (tmp_path / "short.csv").write_text(",x,y\na,1.5\nb,2,3\n")
+    assert fast_csv._read_native(tmp_path / "short.csv") is None
+    with pytest.raises(ValueError):
+        fast_csv.read_labeled_csv(tmp_path / "short.csv", dtype=np.float32)
+
+
+FIFO_READER = """
+import json, sys
+import numpy as np
+sys.path.insert(0, sys.argv[2])
+from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+got = read_labeled_csv(sys.argv[1], dtype=np.float32)
+print(json.dumps({"index": got.index, "columns": got.columns,
+                  "values": got.values.tolist()}))
+"""
+
+
+def test_read_fifo_returns_the_writers_data(tmp_path):
+    # the C++ reader opens a FIFO, finds no size and closes it, losing the
+    # writer's one payload; the port reads anything but a regular file in
+    # Python.  The reader runs in a subprocess with a timeout and the writer
+    # never blocks, so the test cannot hang.
+    import json
+    import os
+    import subprocess
+    import sys
+    import threading
+    import time
+    from pathlib import Path
+
+    fifo = str(tmp_path / "p.csv")
+    os.mkfifo(fifo)
+    payload = b",x,y\na,1.5,2\nb,-0.25,3e-05\n"
+    errors = []
+
+    def writer():
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            try:  # non-blocking: ENXIO until a reader has the FIFO open
+                fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+            except OSError:
+                time.sleep(0.01)
+                continue
+            try:
+                os.write(fd, payload)
+            finally:
+                os.close(fd)
+            return
+        errors.append("no reader opened the FIFO")
+
+    thread = threading.Thread(target=writer, daemon=True)
+    thread.start()
+    root = str(Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", FIFO_READER, fifo, root],
+                          capture_output=True, text=True, timeout=60)
+    thread.join(timeout=70)
+    assert not thread.is_alive() and not errors
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout)
+    assert got["index"] == ["a", "b"] and got["columns"] == ["x", "y"]
+    np.testing.assert_array_equal(np.float32(got["values"]),
+                                  np.float32([[1.5, 2], [-0.25, 3e-05]]))

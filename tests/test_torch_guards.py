@@ -57,15 +57,31 @@ def test_port_needs_neither_pandas_nor_tqdm(path):
                 f"{path} imports tqdm at module level"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_plotting_library_at_module_level(path):
+    # the card's machine has neither: the plots import them inside a function
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in ("networkx", "matplotlib") for n in names), \
+            f"{path} imports {names} at module level"
+
+
 def test_port_imports_without_jax_in_a_fresh_process():
     import subprocess
 
     code = ("import sys, seekr_tpu_torch.models.counter, seekr_tpu_torch.models.pearson, "
             "seekr_tpu_torch.models.pipeline, seekr_tpu_torch.utils.state, "
             "seekr_tpu_torch.stats, seekr_tpu_torch.cli, seekr_tpu_torch.io.stream, "
-            "seekr_tpu_torch.ops.ecdf, seekr_tpu_torch.serve; "
-            "bad = [m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'seekr_tpu', 'pandas')]; "
+            "seekr_tpu_torch.ops.ecdf, seekr_tpu_torch.serve, seekr_tpu_torch.graph, "
+            "seekr_tpu_torch.native, seekr_tpu_torch.viz.style; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'seekr_tpu', 'pandas', 'networkx', 'matplotlib')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -183,6 +199,57 @@ def test_source_hash_follows_sources(monkeypatch, tmp_path):
     before = build._source_hash("nvcc")
     (tmp_path / "a.cu").write_text("int y;")
     assert build._source_hash("nvcc") != before
+
+
+def test_native_library_is_the_ports_own():
+    from seekr_tpu_torch import native
+    from seekr_tpu_torch.native import build as native_build
+
+    path = Path(native.library_path()).resolve()
+    assert path.parent == ROOT / "seekr_tpu_torch" / "_build"
+    assert path.name.startswith("libseekr_tpu_torch_native.")
+    assert native.native_available() and native.load_error() is None
+    # the process never loaded seekr_tpu's copy through the port
+    assert native_build.SRC_DIR == ROOT / "seekr_tpu_torch" / "native" / "src"
+    assert sorted(p.name for p in native_build.SRC_DIR.iterdir()) == sorted(
+        native_build.SOURCES + native_build.HEADERS)
+
+
+@pytest.mark.parametrize("compiler", ["missing", "failing"])
+def test_native_build_raises_without_a_working_gxx(monkeypatch, tmp_path, compiler):
+    from seekr_tpu_torch.native import build as native_build
+
+    if compiler == "missing":
+        cxx = str(tmp_path / "no-such-g++")
+    else:
+        cxx = str(tmp_path / "g++")
+        Path(cxx).write_text("#!/bin/sh\necho 'error: boom' >&2\nexit 1\n")
+        Path(cxx).chmod(0o755)
+    monkeypatch.setattr(native_build, "CXX", cxx)
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "_build")
+    match = "failed to run" if compiler == "missing" else "boom"
+    with pytest.raises(native_build.NativeBuildError, match=match):
+        native_build.build_native_lib()
+    assert not list((tmp_path / "_build").glob("*.so"))
+
+
+def test_native_loader_raises_instead_of_falling_back(monkeypatch):
+    from seekr_tpu_torch import native
+
+    def fail():
+        raise native.NativeBuildError("g++ failed: boom")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_error", None)
+    monkeypatch.setattr(native, "build_native_lib", fail)
+    with pytest.raises(native.NativeBuildError, match="boom"):
+        native.argsort_f64(np.arange(3.0))
+    monkeypatch.setenv("SEEKR_TPU_HOST_SORT", "native")
+    from seekr_tpu_torch.stats.multitest import multipletests
+
+    with pytest.raises(native.NativeBuildError):
+        multipletests(np.array([0.1, 0.2, 0.3]))
+    assert not native.native_available() and "boom" in native.load_error()
 
 
 def need_cuda():
@@ -408,3 +475,42 @@ assert not torch.cuda.is_initialized()
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.gpu
+def test_gpu_kmer_leiden_matches_cpu_run(tmp_path):
+    device = need_cuda()
+    import importlib
+
+    from seekr_tpu_torch.io.fasta import write_fasta
+
+    leiden = importlib.import_module("seekr_tpu_torch.graph.kmer_leiden")
+    rng = np.random.default_rng(12)
+    letters = np.array(list("AGTC"))
+    names, seqs = [], []
+    for f in range(6):
+        founder = rng.integers(0, 4, size=int(rng.integers(400, 900)))
+        for j in range(10):
+            s = founder.copy()
+            hit = rng.random(s.size) < 0.1
+            s[hit] = rng.integers(0, 4, size=int(hit.sum()))
+            names.append(f"f{f}_{j}")
+            seqs.append("".join(letters[s]))
+    write_fasta(str(tmp_path / "c.fa"), names, seqs)
+    np.save(tmp_path / "mean.npy", rng.uniform(5, 15, 256))
+    np.save(tmp_path / "std.npy", rng.uniform(2, 6, 256))
+    args = (str(tmp_path / "c.fa"), str(tmp_path / "mean.npy"), str(tmp_path / "std.npy"), 4)
+    for stream in (False, True):
+        before = count_cuda.launches["count_kmers_smem"]
+        got = leiden.kmer_leiden(*args, pearsoncutoff=0.2, setseed=True, stream=stream,
+                                 device=device)
+        assert count_cuda.launches["count_kmers_smem"] > before
+        want = leiden.kmer_leiden(*args, pearsoncutoff=0.2, setseed=True, stream=stream,
+                                  device="cpu")
+        pairs = set(zip(got.tolist(), want.tolist()))  # one partition, relabeled
+        assert len(pairs) == len(set(got.tolist())) == len(set(want.tolist()))
+    gpu = leiden.similarity_graph(*args, 0.2, device=device).values
+    cpu = leiden.similarity_graph(*args, 0.2, device="cpu").values
+    np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-5)
+    clear = np.abs(cpu - 0.2) > 1e-5
+    assert np.array_equal((gpu > 0) & clear, (cpu > 0) & clear)

@@ -365,6 +365,29 @@ def test_adj_pval_bitwise_vs_seekr_tpu(tmp_path, symmetric, capsys):
     assert np.isnan(got.values[np.tril_indices(30)]).all() == symmetric
 
 
+@pytest.mark.parametrize("symmetric", [True, False], ids=["triu", "full"])
+def test_adj_pval_native_paths_bitwise(monkeypatch, symmetric, capsys):
+    # past the native gates (2,048 rows, 65,536 values): the tiled symmetric
+    # test, the triangle gather and fill and the fused FDR run in C++; they
+    # equal seekr_tpu's (the same C++) and the port's numpy paths, bit for bit
+    import pandas as pd
+
+    rng = np.random.default_rng(9)
+    m = 2100
+    p = np.round(rng.random((m, m)) ** 2, 6)
+    if symmetric:
+        p = np.triu(p) + np.triu(p, 1).T
+    labels = [f"r{i}" for i in range(m)]
+    monkeypatch.delenv("SEEKR_TPU_HOST_SORT", raising=False)
+    got = adj_pval(LabeledMatrix(p, labels, labels), "fdr_bh").values
+    want = jax_adj_pval(pd.DataFrame(p, index=labels, columns=labels), "fdr_bh").to_numpy()
+    assert got.tobytes() == want.tobytes()
+    monkeypatch.setenv("SEEKR_TPU_HOST_SORT", "numpy")
+    numpy_path = adj_pval(LabeledMatrix(p, labels, labels), "fdr_bh").values
+    assert got.tobytes() == numpy_path.tobytes()
+    assert ("is a symmetric matrix" in capsys.readouterr().out) == symmetric
+
+
 def test_adj_pval_rejects_other_inputs_and_asymmetric_labels(capsys):
     assert adj_pval(np.zeros((3, 3)), "fdr_bh") is None
     assert "is not a dataframe" in capsys.readouterr().out
