@@ -71,10 +71,36 @@ and runs these phases, each a function of (device, scale, state):
    threshold, edges, Leiden, export, the card's busy share).  Checked: the
    similarity within 1e-4 of float64; the edge set equal to float64's but for
    pairs within 1e-4 of the cutoff; the 260 families found exactly; two seeded
-   runs identical; the streamed edges and partition equal to the dense ones.
+   runs identical; the streamed edges and partition equal to the dense ones;
+9. the one-shot workflow and the tools around it, at k = 6 in a temporary
+   working directory.  ``run_workflow`` with phase 3's corpus as the background
+   (a 100,000-value null) on the first 2,600 of phase 8's family transcripts
+   with the Leiden stage (cutoff 0.2), and the CLI's ``pipeline`` for the first
+   1,000 transcripts against all 13,000: each ``stage_timer`` stage, the count
+   and GEMM device ms, peak device memory; held to the port's stepwise chain
+   (norm vectors, counts within 1e-5, r within 1e-4 of float64, p-values equal
+   away from null ties, adjusted within 1e-12 of a direct BH, the null the
+   seeded draw of float64 r, the 52 families exactly, every artifact present).
+   Then ``find_pval --stream -bo`` for 13,000 x 13,000 and 1,000 x 13,000,
+   and ``adj_pval_stream`` on each, in a process of its own beside the
+   in-memory ``adj_pval`` (fdr_bh; on the cross matrix also bonferroni, holm,
+   fdr_by; and fdr_bh on its first 100 rows with ``max_bucket_pairs`` 2,000,
+   which forces the tie-mass segments): each pass's wall s, scratch bytes and
+   peak resident set, the .npy bitwise and the CSV byte-equal.  ``DomainPearson`` (8 queries, 1,000
+   targets in windows of 1,000 every 100, the corpus as reference): r within
+   1e-4 of a float64 recomputation from ``count_torch``'s counts, percentiles
+   equal away from ties, the window labels.  ``CountsWeighter`` on the
+   corpus' k = 5 counts with 64 seeded PWMs and the repo's fixture PWM, within
+   1e-9 relative of ``counts @ weights`` built apart.  The data tools on the
+   corpus with GENCODE-style headers and a seeded GTF: ``canonical_gencode``
+   and ``filter_gencode`` against a direct filter, ``gen_rand_rnas -k 2`` on
+   1,000 transcripts with every 2-mer count kept, bitwise.  ``doctor`` in a
+   subprocess exits 0 and names the card.
 
-Launch counts are set to 0 just before phases 3, 4, 6, 7 and 8 drive the main path
-and read just after; the run fails if a kernel of the path was not launched.
+Launch counts are set to 0 just before phases 3, 4, 6, 7, 8 and 9 (the workflow,
+``domain_pearson`` and the PWM counts) drive the main path and read just after;
+the run fails if a kernel of the path was not launched, and phase 9 fails if the
+workflow or ``domain_pearson`` did not launch ``count_kmers_smem``.
 The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -83,7 +109,9 @@ without a CUDA card the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -133,6 +161,16 @@ class Scale:
     leiden_families: int  # planted families of the community run
     leiden_members: int  # transcripts of each family
     leiden_dense_export: int  # transcripts of the dense Gephi export
+    wf_k: int            # k of the workflow, domain_pearson and adj_pval -bi runs
+    wf_families: int     # phase 8 families whose members are the self run's queries
+    adj_tie_cap: int     # max_bucket_pairs of the tie-mass adj_pval -bi case
+    adj_tie_rows: int    # head rows of the cross p-values in that case
+    dom_queries: int     # queries of domain_pearson
+    dom_targets: int     # targets of domain_pearson, tiled into windows
+    dom_window: tuple    # (window, slide) of domain_pearson
+    pwm_count: int       # random PWMs besides the fixture
+    pwm_k: int           # k of the counts the PWMs score
+    rand_m: int          # transcripts shuffled by gen_rand_rnas
 
 
 FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
@@ -140,13 +178,17 @@ FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
              stats_subset=100_000, stats_query=1000, stats_self=2048, stats_pairs=100_000,
              stats_plain_cells=4096, serve_rounds=3, serve_q1=10, serve_big=3,
              serve_big_q=128, serve_burst=(16, 8), serve_grow=(40, 300), leiden_k=6,
-             leiden_families=260, leiden_members=50, leiden_dense_export=500)
+             leiden_families=260, leiden_members=50, leiden_dense_export=500, wf_k=6,
+             wf_families=52, adj_tie_cap=2_000, adj_tie_rows=100, dom_queries=8,
+             dom_targets=1000, dom_window=(1000, 100), pwm_count=64, pwm_k=5, rand_m=1000)
 TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2,
              stats_subset=600, stats_query=16, stats_self=24, stats_pairs=500,
              stats_plain_cells=200, serve_rounds=2, serve_q1=3, serve_big=1,
              serve_big_q=16, serve_burst=(4, 2), serve_grow=(40, 200), leiden_k=4,
-             leiden_families=6, leiden_members=8, leiden_dense_export=20)
+             leiden_families=6, leiden_members=8, leiden_dense_export=20, wf_k=4,
+             wf_families=3, adj_tie_cap=2, adj_tie_rows=16, dom_queries=2, dom_targets=8,
+             dom_window=(300, 50), pwm_count=4, pwm_k=3, rand_m=16)
 
 
 def log(*parts) -> None:
@@ -1489,6 +1531,7 @@ def phase_leiden(device, scale, state):
     leiden = importlib.import_module("seekr_tpu_torch.graph.kmer_leiden")
     k, n_fam, members = scale.leiden_k, scale.leiden_families, scale.leiden_members
     seqs, truth = family_corpus(n_fam, members, scale.corpus_cap, state["seed"] + 8)
+    state["families"] = (seqs, truth)  # phase 9's self run takes its head
     m = len(seqs)
     out = {"phase": "leiden", "card": state.get("smi"), "m": m, "k": k, "families": n_fam,
            "members": members, "mutation": LEIDEN_MUTATION, "cutoff": LEIDEN_CUTOFF,
@@ -1651,16 +1694,659 @@ def phase_leiden(device, scale, state):
         raise AssertionError(f"leiden checks failed: {failures}")
 
 
+WF_CUTOFF = 0.2          # the Leiden stage's -lc, as phase 8's cutoff
+ADJ_CROSS_METHODS = ("fdr_bh", "bonferroni", "holm", "fdr_by")
+DATA_LEN_THRESHOLD = 1000  # filter_gencode -len of the data-tool run
+DATA_ISOFORM = "00[12]"    # filter_gencode -iso of the data-tool run (regex)
+DIRECT_BH_MAX = 20_000_000  # values up to which adj_case also holds fdr_bh to a direct BH
+
+
+class _StageRows(logging.Handler):
+    """Collects the (stage, seconds) of each ``stage_timer`` record."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.rows = []
+
+    def emit(self, record):
+        self.rows.append((str(record.args[0]), float(record.args[1])))
+
+
+@contextmanager
+def captured_stages():
+    """The port's ``stage_timer`` records of the block, as a list of
+    (stage, seconds), kept off the console."""
+    from seekr_tpu_torch.utils.logging import TIMING, get_logger
+
+    log_ = get_logger(TIMING)
+    handler = _StageRows()
+    level, propagate = log_.level, log_.propagate
+    log_.addHandler(handler)
+    log_.setLevel(logging.INFO)
+    log_.propagate = False
+    try:
+        yield handler.rows
+    finally:
+        log_.removeHandler(handler)
+        log_.setLevel(level)
+        log_.propagate = propagate
+
+
+def plain_raw_counts(seqs, k, device):
+    """Raw counts-per-kb [m, 4^k] in float64 by the plain version
+    (``count_torch``), on ``device``."""
+    import torch
+
+    from seekr_tpu_torch.io.encode import encode_seqs
+    from seekr_tpu_torch.ops.count import count_torch
+
+    out = torch.zeros((len(seqs), 4 ** k), dtype=torch.float64, device=device)
+    for b, n, ids in encode_seqs(seqs, k, max_rows_per_bucket=2048).buckets:
+        c = count_torch(torch.as_tensor(b, device=device), torch.as_tensor(n, device=device), k)
+        out[torch.as_tensor(ids, device=device)] = c[:len(ids)].to(torch.float64)
+    return out
+
+
+def f64_normalize(raw, mean=None, std=None):
+    """Log2.post normalize in float64 (the column stats of ``raw`` where not
+    given): center, scale, shift by the set's |min| and log2(x + 1)."""
+    import torch
+
+    mean = raw.mean(dim=0) if mean is None else mean
+    c = raw - mean
+    std = c.std(dim=0, correction=0) if std is None else std
+    c = c / std
+    return torch.log2(c + c.min().abs() + 1.0), mean, std
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def resident_bytes():
+    """This process's resident set (``/proc/self/statm``), or None where the
+    platform does not report it."""
+    import os
+
+    try:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+class PeakResident:
+    """The peak of ``resident_bytes()`` over a block, sampled every 10 ms by a
+    thread (``ru_maxrss`` is no use here: it can carry the parent's peak)."""
+
+    def __enter__(self):
+        import threading
+
+        self.bytes, self._stop = resident_bytes(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.01):
+                now = resident_bytes()
+                if now is not None:
+                    self.bytes = max(self.bytes or 0, now)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        now = resident_bytes()
+        if now is not None:
+            self.bytes = max(self.bytes or 0, now)
+
+
+def adj_case(spec: dict) -> dict:
+    """One ``adj_pval -bi`` case, run in a fresh process so that its memory is
+    its own: ``adj_pval_stream`` on the .npy, then the in-memory ``adj_pval`` on
+    the same matrix (loading it included); each one's wall time and peak
+    resident set; the stream's passes, scratch bytes and segments; and whether
+    the two .npy results are bitwise equal and the two CSVs byte-equal."""
+    import contextlib
+    import hashlib
+    import io
+    import os
+    import shutil
+
+    sys.path.insert(0, spec["root"])
+    from seekr_tpu_torch.io.fast_csv import LabeledMatrix
+    from seekr_tpu_torch.stats.adj_pval import adj_pval
+    from seekr_tpu_torch.stats.stream_adj import adj_pval_stream
+
+    def sha(path):
+        h = hashlib.sha256()
+        with open(path, "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 24), b""):
+                h.update(chunk)
+        return h.hexdigest()
+
+    from seekr_tpu_torch.stats import stream_adj
+
+    prefix, method = spec["prefix"], spec["method"]
+    scratch = f"{prefix}_scratch"
+    os.makedirs(scratch)
+    marks, segments = [], []
+    segment_plan = stream_adj._bucket_segments
+
+    def counted_segments(*args):
+        segs = segment_plan(*args)
+        segments.append((len(segs), sum(seg.equal for seg in segs)))
+        return segs
+
+    stream_adj._bucket_segments = counted_segments
+    out = {"method": method, "max_bucket_pairs": spec.get("max_bucket_pairs"),
+           "baseline_rss_bytes": resident_bytes()}
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said), PeakResident() as peak:
+        adj_pval_stream(spec["npy"], method, outputname=f"{prefix}_st",
+                        out_npy=f"{prefix}_st.npy", scratch_dir=scratch,
+                        max_bucket_pairs=spec.get("max_bucket_pairs"),
+                        progress=lambda stage: marks.append(
+                            (stage, time.perf_counter(), dir_bytes(scratch))))
+    t1 = time.perf_counter()
+    out["stream_wall_s"] = t1 - t0
+    out["stream_peak_rss_bytes"] = peak.bytes
+    out["stream_symmetric"] = "is a symmetric matrix" in said.getvalue()
+    ends = [t for _, t, _ in marks[1:]] + [t1]
+    out["stream_passes_s"] = {stage: end - t for (stage, t, _), end in zip(marks, ends)}
+    out["scratch_bytes_at"] = {stage: b for stage, _, b in marks}
+    out["value_buckets"] = len(segments)
+    out["segments"] = sum(n for n, _ in segments)
+    out["all_equal_segments"] = sum(e for _, e in segments)
+    shutil.rmtree(scratch)
+
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said), PeakResident() as peak:
+        values = np.load(spec["npy"])
+        m1, m2 = values.shape
+        adj = adj_pval(LabeledMatrix(values, [str(i) for i in range(m1)],
+                                     [str(j) for j in range(m2)]),
+                       method, outputname=f"{prefix}_mem")
+    out["memory_wall_s"] = time.perf_counter() - t0
+    out["memory_peak_rss_bytes"] = peak.bytes
+    out["memory_symmetric"] = "is a symmetric matrix" in said.getvalue()
+    streamed = np.load(f"{prefix}_st.npy", mmap_mode="r")
+    got = streamed.view(np.uint64)
+    want = np.ascontiguousarray(adj.values).view(np.uint64)
+    step = max(1, (1 << 24) // m2)
+    out["npy_bitwise"] = streamed.shape == adj.values.shape and all(
+        np.array_equal(got[i:i + step], want[i:i + step]) for i in range(0, m1, step))
+    out["csv_bytes_equal"] = sha(f"{prefix}_st.csv") == sha(f"{prefix}_mem.csv")
+    out["csv_bytes"] = os.path.getsize(f"{prefix}_st.csv")
+    iu = np.triu_indices(m1, 1) if out["memory_symmetric"] else None
+    p = values[iu] if iu is not None else values
+    a = adj.values[iu] if iu is not None else adj.values
+    if method == "fdr_bh" and p.size <= DIRECT_BH_MAX:
+        out["max_abs_vs_direct_bh"] = float(np.abs(a.ravel() - direct_bh(p)).max())
+    out["rejected_at_0.05"] = int((a <= 0.05).sum())
+    del streamed, got
+    for suffix in ("_st.npy", "_st.csv", "_mem.csv"):
+        os.unlink(prefix + suffix)
+    return out
+
+
+def run_adj_case(here, spec) -> dict:
+    """``adj_case`` in a subprocess; its JSON result."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "print(json.dumps(chip_smoke.adj_case(json.loads(sys.argv[2]))))")
+    proc = subprocess.run([sys.executable, "-c", code, str(here), json.dumps(spec)],
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"adj_pval -bi case {spec} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def random_pwms(rng, n, lengths=(6, 12)):
+    """``n`` PWM tables (positions x ACGU probabilities), 6-12 positions each."""
+    return [rng.dirichlet(np.ones(4), size=int(rng.integers(lengths[0], lengths[1] + 1)))
+            for _ in range(n)]
+
+
+def write_pwm(path, table):
+    rows = ["Pos\tA\tC\tG\tU"] + [f"{i + 1}\t" + "\t".join(repr(float(v)) for v in row)
+                                  for i, row in enumerate(table)]
+    Path(path).write_text("\n".join(rows) + "\n")
+
+
+def pwm_weights(table, k):
+    """The k-mer weights of one PWM table (ACGT columns), written out apart
+    from ``CountsWeighter``: every placement of each k-mer's sub-words of
+    length min(k, positions) inside the motif, the product of their bases'
+    probabilities, summed."""
+    col = {"A": 0, "C": 1, "G": 2, "T": 3}
+    n = table.shape[0]
+    w = min(k, n)
+    out = np.zeros(4 ** k)
+    for idx, letters in enumerate(itertools.product("AGTC", repeat=k)):
+        total = 0.0
+        for s in range(k - w + 1):
+            word = letters[s:s + w]
+            for start in range(n - w + 1):
+                prod = 1.0
+                for i, base in enumerate(word):
+                    prod *= table[start + i, col[base]]
+                total += prod
+        out[idx] = total
+    return out
+
+
+def gencode_corpus(seqs, rng):
+    """GENCODE-style headers for ``seqs`` and a GTF of their 'transcript' lines:
+    genes of 1-4 isoforms numbered -001, -002, ... (a share 20x), transcript
+    lengths in the header, about a third tagged Ensembl_canonical.  Returns
+    (headers, gtf text, facts) with the facts a direct filter needs."""
+    headers, lines, facts = [], ["##description: synthetic"], []
+    gene, iso = 0, 0
+    for i, s in enumerate(seqs):
+        if iso == 0 or rng.random() < 0.45 or iso >= 4:
+            gene, iso = gene + 1, 0
+        iso += 1
+        number = (200 if rng.random() < 0.25 else 0) + iso
+        tid, name = f"ENST{i:011d}.1", f"G{gene}-{number:03d}"
+        canonical = bool(rng.random() < 0.35)
+        headers.append(f"{tid}|ENSG{gene:011d}.1|-|-|{name}|G{gene}|{len(s)}|")
+        tag = 'tag "Ensembl_canonical"; ' if canonical else 'tag "basic"; '
+        lines.append(f"chr1\tsyn\ttranscript\t1\t{len(s)}\t.\t+\t.\t"
+                     f'gene_id "ENSG{gene:011d}.1"; transcript_id "{tid}"; '
+                     f'transcript_name "{name}"; {tag}')
+        lines.append(f"chr1\tsyn\texon\t1\t{len(s)}\t.\t+\t.\t"
+                     f'transcript_id "{tid}"; tag "Ensembl_canonical";')
+        facts.append((len(s), canonical, f"{number:03d}", name))
+    return headers, "\n".join(lines) + "\n", facts
+
+
+def fasta_records(path):
+    from seekr_tpu_torch.io.fasta import Reader
+
+    reader = Reader(str(path))
+    return [h[1:] for h in reader.get_headers()], reader.get_seqs()
+
+
+def phase_workflow(device, scale, state):
+    """Phase 9: the one-shot workflow, the streamed correction, domain_pearson,
+    pwms, the data tools and the doctor, with their checks."""
+    import os
+    import re
+
+    import torch
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.io.encode import encode_seqs
+    from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+    from seekr_tpu_torch.io.fasta import write_fasta
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.models.domain import DomainPearson, percentile_of_scores, tile_windows
+    from seekr_tpu_torch.models.pearson import pearson as port_pearson
+    from seekr_tpu_torch.models.pwm import CountsWeighter
+    from seekr_tpu_torch.models.workflow import run_workflow
+    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops.count import count_graph
+    from seekr_tpu_torch.ops.ecdf import SortedBackground
+    from seekr_tpu_torch.ops.normalize import normalize_counts
+    from seekr_tpu_torch.stats.find_pval import find_pval
+    from seekr_tpu_torch.utils.adj import triu_index_to_ij
+
+    here = Path(__file__).resolve().parent
+    seqs, k, dev = state["seqs"], scale.wf_k, str(device)
+    m, q = len(seqs), scale.stats_query
+    fam_seqs, fam_truth = state["families"]
+    n_fam = scale.wf_families * scale.leiden_members
+    fam_seqs, fam_truth = fam_seqs[:n_fam], fam_truth[:n_fam]
+    out = {"phase": "workflow", "card": state.get("smi"), "k": k, "background": m,
+           "self_queries": n_fam, "cross": [q, m], "subset": scale.stats_subset}
+    checks = {}
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            write_fasta_file("corpus.fa", seqs)  # set-up: the user's files
+            write_fasta_file("query.fa", seqs[:q])
+            write_fasta_file("families.fa", fam_seqs)
+            seed = state["seed"] + 10
+
+            # -- pipeline: the self run with Leiden (API), the cross run (CLI) --
+            count_cuda.reset_launches()
+            if is_cuda(device):
+                torch.cuda.reset_peak_memory_stats(device)
+            with captured_stages() as stages:
+                t0 = time.perf_counter()
+                res = run_workflow("families.fa", background="corpus.fa", k=k,
+                                   subset_size=scale.stats_subset, seed=seed, leiden=True,
+                                   leiden_cutoff=WF_CUTOFF, outdir="self", device=device)
+                sync(device)
+                out["pipeline_self_s"] = time.perf_counter() - t0
+                out["pipeline_self_stages_s"] = dict(stages)
+                stages.clear()
+                t0 = time.perf_counter()
+                cli.main(["pipeline", "query.fa", "-s2", "corpus.fa", "-b", "corpus.fa",
+                          "-k", str(k), "-sbs", str(scale.stats_subset), "-sd", str(seed),
+                          "-o", "cross", "--device", dev])
+                sync(device)
+                out["pipeline_cross_cli_s"] = time.perf_counter() - t0
+                out["pipeline_cross_stages_s"] = dict(stages)
+            if is_cuda(device):
+                out["pipeline_max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+                    device)
+            workflow_launches = count_cuda.launches["count_kmers_smem"]
+            read_launches(state, "workflow")
+            out["pipeline_smem_launches"] = workflow_launches
+            if is_cuda(device) and workflow_launches == 0:
+                raise AssertionError("the workflow never launched count_kmers_smem")
+            out["count_device_ms"] = {
+                "background": count_device_ms(seqs, k, 1, device, scale.reps),
+                "self_queries": count_device_ms(fam_seqs, k, 1, device, scale.reps),
+                "cross_queries": count_device_ms(seqs[:q], k, 1, device, scale.reps)}
+
+            # -- checks against the port's stepwise chain -----------------------
+            mean, std = np.load(f"self/mean_{k}mers.npy"), np.load(f"self/std_{k}mers.npy")
+            step = KmerCounter("corpus.fa", k=k, silent=True, device=device)
+            bkg_counts = step.get_counts_device()
+            out["norm_vectors_max_rel"] = float(max(
+                np.abs(mean - step.mean).max() / np.abs(step.mean).max(),
+                np.abs(std - step.std).max() / np.abs(step.std).max()))
+            checks["norm vectors within 1e-6 relative"] = out["norm_vectors_max_rel"] <= 1e-6
+            bkg_post = KmerCounter("corpus.fa", k=k, mean=mean, std=std, silent=True,
+                                   device=device).get_counts_device()
+            triu_n = m * (m - 1) // 2
+            null = res["null_sample"]
+            pick = np.random.default_rng(seed).choice(triu_n, size=min(scale.stats_subset,
+                                                                       triu_n), replace=False)
+            ii, jj = triu_index_to_ij(m, pick)
+            ii_t, jj_t = (torch.as_tensor(np.asarray(a), device=device) for a in (ii, jj))
+            std_rows = bkg_post.to(torch.float64)
+            std_rows = std_rows - std_rows.mean(dim=1, keepdim=True)
+            std_rows = std_rows / std_rows.std(dim=1, keepdim=True, correction=0)
+            null64 = ((std_rows[ii_t] * std_rows[jj_t]).sum(dim=1) / (4 ** k)).cpu().numpy()
+            del std_rows, ii_t, jj_t
+            out["null_sample_max_abs_vs_f64"] = float(np.abs(null - null64).max())
+            checks["null sample: the seeded draw, within 1e-4 of float64"] = (
+                null.shape == (min(scale.stats_subset, triu_n),)
+                and out["null_sample_max_abs_vs_f64"] <= 1e-4)
+            gemm = {"background": gemm_device_ms(bkg_post, bkg_post, device, 3, 4096)}
+
+            runs = {"self": ("families.fa", None, fam_seqs), "cross": ("query.fa", "corpus.fa",
+                                                                       seqs[:q])}
+            for name, (fa1, fa2, _) in runs.items():
+                c1 = KmerCounter(fa1, k=k, mean=mean, std=std, silent=True,
+                                 device=device).get_counts_device()
+                c2 = c1 if fa2 is None else bkg_post
+                gemm[name] = gemm_device_ms(c1, c2, device, 3, 4096 if fa2 is None else None)
+                got_counts = read_labeled_csv(f"{name}/counts1.csv", dtype=np.float32).values
+                got_r = read_labeled_csv(f"{name}/pearson.csv", dtype=np.float32).values
+                got_p = read_labeled_csv(f"{name}/pvals.csv", dtype=np.float32).values
+                got_adj = read_labeled_csv(f"{name}/pvals_adjusted.csv").values
+                r64 = f64_pearson_device(c1, c2)
+                r_err = float(np.abs(got_r - r64).max())
+                # a p-value can differ only where a null value lies between r
+                # and r64: within the largest |r - r64| of r64
+                near = near_background(r64, null, tol=max(r_err, 1e-7))
+                want_p = SortedBackground(null).pvals(r64).astype(np.float32)
+                if fa2 is None:
+                    iu = np.triu_indices(r64.shape[0], 1)
+                    adj_got, adj_want = got_adj[iu], direct_bh(got_p[iu])
+                    lower_nan = bool(np.isnan(got_adj[np.tril_indices(r64.shape[0])]).all())
+                else:
+                    adj_got, adj_want, lower_nan = got_adj.ravel(), direct_bh(got_p), True
+                row = {"counts_max_abs": float(np.abs(got_counts - c1.cpu().numpy()).max()),
+                       "r_max_abs_vs_f64": r_err,
+                       "near_tie_share": float(near.mean()),
+                       "share_within_1e-5_of_null": float(
+                           near_background(r64, null, tol=1e-5).mean()),
+                       "pvals_differ_away_from_ties": int((got_p != want_p)[~near].sum()),
+                       "adj_max_abs_vs_direct_bh": float(np.abs(adj_got - adj_want).max()),
+                       "adj_symmetric_fill": lower_nan,
+                       "shape": list(got_r.shape)}
+                out[f"check_{name}"] = row
+                checks[f"{name}: counts within 1e-5"] = row["counts_max_abs"] <= 1e-5
+                checks[f"{name}: r within 1e-4 of float64"] = row["r_max_abs_vs_f64"] <= 1e-4
+                checks[f"{name}: p-values equal away from null ties"] = (
+                    row["pvals_differ_away_from_ties"] == 0)
+                checks[f"{name}: adjusted within 1e-12 of direct BH"] = (
+                    row["adj_max_abs_vs_direct_bh"] <= 1e-12 and lower_nan)
+                del c1
+            out["gemm_device_ms"] = gemm
+            membership = np.loadtxt("self/communities.csv", delimiter=",", skiprows=1,
+                                    usecols=1, dtype=np.int64)
+            out["families_found"] = len(set(membership.tolist()))
+            checks["the planted families, exactly"] = (
+                same_partition(membership, fam_truth)
+                and np.array_equal(membership, res["communities"]))
+            files = {"self": ["mean", "std", "counts1", "pearson", "pvals", "pvals_adjusted",
+                              "communities"],
+                     "cross": ["mean", "std", "counts1", "counts2", "pearson", "pvals",
+                               "pvals_adjusted"]}
+            present = all(os.path.isfile(f"{d}/{f}_{k}mers.npy" if f in ("mean", "std")
+                                         else f"{d}/{f}.csv")
+                          for d, names in files.items() for f in names)
+            checks["every artifact present and re-readable"] = (
+                present
+                and read_labeled_csv("cross/counts2.csv", dtype=np.float32).shape
+                == (m, 4 ** k)
+                and read_labeled_csv("self/pvals.csv").shape == (n_fam, n_fam))
+            del bkg_counts
+
+            # -- adj_pval -bi on find_pval --stream -bo output ------------------
+            np.save("null.npy", null)
+            vectors = (f"self/mean_{k}mers.npy", f"self/std_{k}mers.npy")
+            t0 = time.perf_counter()
+            find_pval("corpus.fa", "corpus.fa", *vectors, k, null, stream=True,
+                      npy_out="self_p.npy", device=device)
+            find_pval("query.fa", "corpus.fa", *vectors, k, null, stream=True,
+                      npy_out="cross_p.npy", device=device)
+            out["find_pval_stream_s"] = time.perf_counter() - t0
+            self_p = np.load("self_p.npy", mmap_mode="r")
+            out["self_pvals_exactly_symmetric"] = bool(all(
+                np.array_equal(self_p[i:i + 1024, :], self_p[:, i:i + 1024].T)
+                for i in range(0, m, 1024)))
+            del self_p
+            # the tie-mass case on the head rows: each forced segment is one
+            # emit with its own file appends, so its sweep grows with their count
+            np.save("cross_head_p.npy", np.load("cross_p.npy", mmap_mode="r")[:scale.adj_tie_rows])
+            cases = [("self_p.npy", "fdr_bh", None)]
+            cases += [("cross_p.npy", method, None) for method in ADJ_CROSS_METHODS]
+            cases += [("cross_head_p.npy", "fdr_bh", scale.adj_tie_cap)]
+            adj_rows = []
+            for i, (npy, method, cap) in enumerate(cases):
+                row = run_adj_case(here, {"root": str(here), "npy": os.path.abspath(npy),
+                                          "method": method, "max_bucket_pairs": cap,
+                                          "prefix": os.path.abspath(f"case{i}")})
+                row["input"] = npy
+                adj_rows.append(row)
+                log(json.dumps({"phase": "workflow", "adj_pval_bi": row}))
+            out["adj_pval_bi"] = adj_rows
+            checks["adj_pval -bi: .npy bitwise and CSV byte-equal, every case"] = all(
+                r["npy_bitwise"] and r["csv_bytes_equal"] for r in adj_rows)
+            checks["adj_pval -bi: the self matrix detected symmetric by both paths"] = (
+                adj_rows[0]["stream_symmetric"] and adj_rows[0]["memory_symmetric"])
+            checks["adj_pval -bi: the bucket cap forced tie-mass segments"] = (
+                adj_rows[-1]["segments"] > adj_rows[-1]["value_buckets"]
+                and adj_rows[-1]["all_equal_segments"] > 0)
+            checks["adj_pval -bi: fdr_bh within 1e-12 of direct BH"] = all(
+                r["max_abs_vs_direct_bh"] <= 1e-12 for r in adj_rows
+                if "max_abs_vs_direct_bh" in r)
+            for name in ("self_p.npy", "cross_p.npy", "cross_head_p.npy"):
+                os.unlink(name)
+
+            # -- domain_pearson ---------------------------------------------
+            write_fasta_file("dom_q.fa", seqs[:scale.dom_queries])
+            write_fasta_file("dom_t.fa", seqs[:scale.dom_targets])
+            window, slide = scale.dom_window
+            count_cuda.reset_launches()
+            t0 = time.perf_counter()
+            dom = DomainPearson("dom_q.fa", "dom_t.fa", "corpus.fa", r_values_path="r.csv",
+                                percentiles_path="pct.csv", k=k, window=window, slide=slide,
+                                device=device)
+            dom.run()
+            sync(device)
+            out["domain_s"] = time.perf_counter() - t0
+            dom_launches = count_cuda.launches["count_kmers_smem"]
+            read_launches(state, "domain_pearson")
+            if is_cuda(device) and dom_launches == 0:
+                raise AssertionError("domain_pearson never launched count_kmers_smem")
+            windows = [(f"t{i}", s, w) for i, t in enumerate(seqs[:scale.dom_targets])
+                       for s, w in tile_windows(t, window, slide)]
+            out["domain_windows"] = len(windows)
+            ref_raw = plain_raw_counts(seqs, k, device).to(torch.float64)
+            ref_n, ref_mean, ref_std = f64_normalize(ref_raw)
+            q_n, _, _ = f64_normalize(plain_raw_counts(seqs[:scale.dom_queries], k, device),
+                                      ref_mean, ref_std)
+            w_n, _, _ = f64_normalize(plain_raw_counts([w for _, _, w in windows], k, device),
+                                      ref_mean, ref_std)
+            r64 = f64_pearson_device(w_n, q_n)
+            null64 = f64_pearson_device(q_n, ref_n)
+            out["domain_r_max_abs_vs_f64"] = float(np.abs(dom.r_values.values - r64).max())
+            pct64 = np.stack([percentile_of_scores(null64[j], r64[:, j])
+                              for j in range(r64.shape[1])], axis=1)
+            # the port's own null (the same ops as run(), so the same bits): a
+            # percentile moves only where a null value lies within both sides'
+            # float32 errors of r64
+            ref_norm, ref_mu, ref_sd = normalize_counts(dom._raw_for(seqs), log2_mode=dom.log2)
+            null32 = port_pearson(dom._normalized(dom._raw_for(seqs[:scale.dom_queries]),
+                                                  ref_mu, ref_sd), ref_norm, device=device)
+            del ref_norm
+            dom_err = (float(np.abs(dom.r_values.values - r64).max()),
+                       float(np.abs(null32 - null64).max()))
+            out["domain_null_max_abs_vs_f64"] = dom_err[1]
+            tol = max(sum(dom_err), 1e-7)
+            near = np.stack([near_background(r64[:, j], null64[j], tol=tol)
+                             for j in range(r64.shape[1])], axis=1)
+            out["domain_percentile_near_tie_share"] = float(near.mean())
+            out["domain_share_within_1e-5_of_null"] = float(np.stack(
+                [near_background(r64[:, j], null64[j], tol=1e-5)
+                 for j in range(r64.shape[1])], axis=1).mean())
+            # stored in r's float32, as seekr_tpu stores them
+            out["domain_percentiles_differ_away_from_ties"] = int(
+                (dom.percentiles.values != pct64.astype(np.float32))[~near].sum())
+            out["domain_count_device_ms"] = (
+                count_device_ms([w for _, _, w in windows], k, 1, device, scale.reps)
+                + count_device_ms(seqs, k, 1, device, scale.reps)
+                if is_cuda(device) else None)
+            out["domain_gemm_device_ms"] = (
+                gemm_device_ms(w_n.to(torch.float32), q_n.to(torch.float32), device, 3)
+                + gemm_device_ms(q_n.to(torch.float32), ref_n.to(torch.float32), device, 3)
+                if is_cuda(device) else None)
+            del ref_raw, ref_n, w_n
+            checks["domain: r within 1e-4 of float64"] = out["domain_r_max_abs_vs_f64"] <= 1e-4
+            checks["domain: percentiles equal away from ties"] = (
+                out["domain_percentiles_differ_away_from_ties"] == 0)
+            checks["domain: window labels"] = (
+                dom.window_labels == [f"{t}|{s}" for t, s, _ in windows]
+                and read_labeled_csv("pct.csv").index == dom.window_labels)
+
+            # -- pwms ------------------------------------------------------------
+            pwm_rng = np.random.default_rng(seed + 1)
+            tables = random_pwms(pwm_rng, scale.pwm_count)
+            os.makedirs("pwms")
+            for i, table in enumerate(tables):
+                write_pwm(f"pwms/P{i:03d}.txt", table)
+            fixture = here / "tests" / "fixtures" / "pwms" / "SYN1_0.6.txt"
+            Path("pwms/SYN1_0.6.txt").write_bytes(fixture.read_bytes())
+            count_cuda.reset_launches()
+            t0 = time.perf_counter()
+            pwm_counts = KmerCounter("corpus.fa", k=scale.pwm_k, silent=True,
+                                     device=device).get_counts()
+            scores = CountsWeighter("pwms", pwm_counts, k=scale.pwm_k,
+                                    out_path="pwm_scores.csv").run()
+            out["pwms_s"] = time.perf_counter() - t0
+            read_launches(state, "pwms")
+            syn = np.loadtxt(fixture, skiprows=1)[:, 1:]
+            want_w = np.stack([pwm_weights(t, scale.pwm_k) for t in tables + [syn]], axis=1)
+            names = [f"P{i:03d}.txt" for i in range(len(tables))] + ["SYN1_0.6.txt"]
+            order = np.argsort(names)
+            want_scores = (pwm_counts.astype(np.float64) @ want_w[:, order]).T
+            out["pwms_max_rel"] = float(np.abs(scores.values - want_scores).max()
+                                        / np.abs(want_scores).max())
+            checks["pwms: within 1e-9 relative of float64"] = (
+                out["pwms_max_rel"] <= 1e-9 and scores.index == sorted(names)
+                and read_labeled_csv("pwm_scores.csv").shape == (len(names), m))
+
+            # -- data tools --------------------------------------------------------
+            data_rng = np.random.default_rng(seed + 2)
+            headers, gtf, facts = gencode_corpus(seqs, data_rng)
+            write_fasta("gencode.fa", headers, seqs)
+            Path("gencode.gtf").write_text(gtf)
+            t0 = time.perf_counter()
+            cli.main(["canonical_gencode", "gencode.fa", "canonical.fa", "--device", dev])
+            cli.main(["filter_gencode", "gencode.fa", "-gtf", "gencode.gtf", "-len",
+                      str(DATA_LEN_THRESHOLD), "-can", "-iso", DATA_ISOFORM, "-o", "filtered",
+                      "--device", dev])
+            out["data_filters_s"] = time.perf_counter() - t0
+            canon_want = [h for h, f in zip(headers, facts) if f[3].endswith("-001")]
+            filt_want = [h for h, f in zip(headers, facts)
+                         if f[0] >= DATA_LEN_THRESHOLD and f[1]
+                         and re.fullmatch(DATA_ISOFORM, f[2])]
+            canon_got, canon_seqs = fasta_records("canonical.fa")
+            filt_got, filt_seqs = fasta_records("filtered.fa")
+            by_header = dict(zip(headers, seqs))
+            out["data_kept"] = {"canonical_gencode": len(canon_got),
+                                "filter_gencode": len(filt_got), "of": m}
+            checks["data: canonical_gencode keeps the direct filter's records"] = (
+                canon_got == canon_want and canon_seqs == [by_header[h] for h in canon_want])
+            checks["data: filter_gencode keeps the direct filter's records"] = (
+                filt_got == filt_want and filt_seqs == [by_header[h] for h in filt_want])
+            write_fasta_file("rand_in.fa", seqs[:scale.rand_m])
+            t0 = time.perf_counter()
+            cli.main(["gen_rand_rnas", "rand_in.fa", "rand_out.fa", "-k", "2", "-s", str(seed),
+                      "--device", dev])
+            out["gen_rand_rnas_s"] = time.perf_counter() - t0
+            _, shuffled = fasta_records("rand_out.fa")
+            originals = seqs[:scale.rand_m]
+            out["gen_rand_rnas_changed"] = sum(a != b for a, b in zip(originals, shuffled))
+            same = len(shuffled) == len(originals)
+            for (b1, n1, ids1), (b2, n2, ids2) in zip(
+                    encode_seqs(originals, 2, max_rows_per_bucket=2048).buckets,
+                    encode_seqs(shuffled, 2, max_rows_per_bucket=2048).buckets):
+                c1 = count_graph(torch.as_tensor(b1, device=device),
+                                 torch.as_tensor(n1, device=device), 2, scaled=False)
+                c2 = count_graph(torch.as_tensor(b2, device=device),
+                                 torch.as_tensor(n2, device=device), 2, scaled=False)
+                same &= np.array_equal(ids1, ids2) and bool(torch.equal(c1, c2))
+            checks["data: gen_rand_rnas keeps every 2-mer count, bitwise"] = (
+                same and out["gen_rand_rnas_changed"] > 0)
+
+            # -- doctor ------------------------------------------------------------
+            argv = [sys.executable, "-m", "seekr_tpu_torch.cli", "doctor"]
+            if not is_cuda(device):
+                argv.append("--no-device")
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=600)
+            out["doctor_s"] = time.perf_counter() - t0
+            out["doctor_rc"] = proc.returncode
+            out["doctor_report"] = proc.stdout.strip().splitlines()
+            checks["doctor: exit 0, the card's name reported"] = proc.returncode == 0 and (
+                not is_cuda(device) or torch.cuda.get_device_name(device) in proc.stdout)
+        finally:
+            os.chdir(home)
+
+    out["checks"] = checks
+    log(json.dumps(out))
+    state["workflow"] = out
+    failures = [name for name, ok in checks.items() if not ok]
+    if failures:
+        raise AssertionError(f"workflow checks failed: {failures}")
+
+
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
-          phase_stats, phase_serve, phase_leiden)
+          phase_stats, phase_serve, phase_leiden, phase_workflow)
 
 
 def run(device, scale, seed: int = 0) -> dict:
     """Run every phase in order; any failure raises.  Returns the state."""
-    state = {"seed": seed}
+    state = {"seed": seed, "phase_s": {}}
     for phase in PHASES:
         log(f"== {phase.__name__}")
+        t0 = time.perf_counter()
         phase(device, scale, state)
+        state["phase_s"][phase.__name__] = time.perf_counter() - t0
+    log(json.dumps({"phase_s": state["phase_s"]}))
     return state
 
 

@@ -15,6 +15,11 @@ and the statistics chain, run with PyTorch on one CUDA card:
   * the warm-resident service ``SeekrService`` and its socket server and
     client (``serve``)
   * Leiden communities with Gephi CSVs, ``kmer_leiden`` (``graph``)
+  * the one-shot workflow ``run_workflow``, the sliding-window
+    ``DomainPearson`` and the PWM ``CountsWeighter`` (``models``), and the
+    streamed correction ``adj_pval_stream`` (``stats.stream_adj``)
+  * the data tools: GENCODE download, fasta filters, k-mer-preserving random
+    RNAs (``data``); logging, traces and the ``doctor`` report (``utils``)
   * the host C++ library -- FASTA parse and encode, CSV, sorts and FDR, the
     Leiden engine -- built by g++ at first use (``native``)
   * the command line: ``python -m seekr_tpu_torch.cli <command>`` (``cli``)
@@ -38,6 +43,8 @@ _LAZY_EXPORTS = {
     "adj_pval": ("seekr_tpu_torch.stats.adj_pval", "adj_pval"),
     "multipletests": ("seekr_tpu_torch.stats.multitest", "multipletests"),
     "kmer_leiden": ("seekr_tpu_torch.graph.kmer_leiden", "kmer_leiden"),
+    "Downloader": ("seekr_tpu_torch.data.gencode", "Downloader"),
+    "filter_gencode": ("seekr_tpu_torch.data.filter_gencode", "filter_gencode"),
 }
 
 __all__ = [*_LAZY_EXPORTS, "__version__"]

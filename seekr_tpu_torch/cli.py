@@ -1,22 +1,28 @@
 """The port's command line: ``python -m seekr_tpu_torch.cli <command> [args]``.
 
-Nine commands of ``seekr_tpu/cli.py``, with its flags and defaults and the same
-file contracts (counts CSV/npy, mean/std npy, pearson npy/csv, fitres CSV,
-p-value CSV, corpus snapshot npz, query CSV, Gephi nodes/edges CSVs):
+Seventeen commands of ``seekr_tpu/cli.py``, with its flags and defaults and the
+same file contracts (counts CSV/npy, mean/std npy, pearson npy/csv, fitres CSV,
+p-value CSV and npy, corpus snapshot npz, query CSV, Gephi nodes/edges CSVs,
+workflow artifacts, domain r-values and percentiles, PWM scores, fastas):
 
   main path    kmer_counts, norm_vectors, pearson
-  statistics   find_dist, find_pval, adj_pval
+  statistics   find_dist, find_pval, adj_pval (-bi: the streamed correction)
+  workflow     pipeline
+  models       domain_pearson, pwms
   communities  kmer_leiden
   serving      serve, query
+  data         canonical_gencode, filter_gencode, gen_rand_rnas, download_gencode
+  health       doctor
 
 One flag is the port's own: ``--device`` (default: the first CUDA card; ``cpu``
-runs on the CPU).  Every command but the client ``query`` resolves it first, so
-without a card and without ``--device cpu`` a command raises instead of moving
-to the CPU on its own; adj_pval, which runs on the host, holds the same rule.
-Not in this port yet, and refused with an error that names the slice they come
-with: ``adj_pval -bi/-bo/--symmetric`` (the streamed correction), ``find_dist
--pf`` and ``kmer_leiden -pn`` (the plots), ``-dp``/``-kp`` above 1 and serve's
-multi-host flags (the device mesh).  A bare command prints its help.
+runs on the CPU).  Every command but the client ``query`` and ``doctor``
+resolves it first, so without a card and without ``--device cpu`` a command
+raises instead of moving to the CPU on its own; the host-only commands
+(adj_pval, pwms, the data tools) hold the same rule.  ``doctor`` probes the card
+``--device`` names in a subprocess.  Not in this port yet, and refused with an
+error that names the slice they come with: ``find_dist -pf`` and ``kmer_leiden
+-pn`` (the plots), ``-dp``/``-kp`` above 1 and the multi-host flags (the device
+mesh).  A bare command prints its help; a bare ``doctor`` runs.
 """
 
 from __future__ import annotations
@@ -28,7 +34,6 @@ import sys
 LOG2_CHOICES = ["Log2.post", "Log2.pre", "Log2.none"]
 DEVICE_HELP = ("where counting and Pearson run: a torch device such as 'cuda:0' "
                "or 'cpu' (default: the first CUDA card)")
-STREAM_ADJ_SLICE = "the port's streamed adj_pval slice (stats/stream_adj)"
 MESH_SLICE = "the port's multi-GPU slice"
 
 KMER_COUNTS_DOC = """
@@ -90,6 +95,14 @@ correct the full flattened matrix.  Methods: bonferroni, sidak, holm,
 holm-sidak, simes-hochberg, hommel, fdr_bh, fdr_by, fdr_tsbh, fdr_tsbky.
 
   $ python -m seekr_tpu_torch.cli adj_pval pvals.csv fdr_bh -o adj_pvals
+
+A .npy input (-bi, from find_pval -bo) is corrected with bounded memory: the
+matrix stays on disk, values are bucket-sorted through scratch files, and the
+result is bitwise the in-memory path's (every method but hommel).  --symmetric
+yes/no skips the 5-decimal transpose detection (a full extra read):
+
+  $ python -m seekr_tpu_torch.cli adj_pval pvals.npy fdr_bh -bi -o adj_pvals -bo adj.npy
+  $ python -m seekr_tpu_torch.cli adj_pval pvals.npy fdr_bh -bi --symmetric yes -o adj_pvals
 """
 
 KMER_LEIDEN_DOC = """
@@ -132,6 +145,83 @@ nearest targets per query as tidy rows (query, rank, target, r).
 
   $ python -m seekr_tpu_torch.cli query queries.fa --socket seekr.sock -o sim.csv
   $ python -m seekr_tpu_torch.cli query queries.fa --socket seekr.sock --topk 10 --pvals
+"""
+
+
+PIPELINE_DOC = """
+One-shot analysis: background norm vectors and empirical null, query counts,
+all-pairs Pearson, empirical p-values and multiple-test correction, in memory,
+artifacts written once (mean/std .npy, counts1/2.csv, pearson.csv, pvals.csv,
+pvals_adjusted.csv).  The chain norm_vectors -> kmer_counts -> pearson ->
+find_dist -> find_pval -> adj_pval; --leiden appends communities on the
+self-similarity graph (communities.csv).
+
+  $ python -m seekr_tpu_torch.cli pipeline queries.fa -b gencode_lncRNA.fa -k 6 -o results/
+  $ python -m seekr_tpu_torch.cli pipeline rnas.fa -b bkg.fa --leiden -lc 0.1 -o results/
+"""
+
+DOMAIN_PEARSON_DOC = """
+Sliding-window domain Pearson: correlate whole-query k-mer profiles against
+windows tiled across target sequences; r peaks mark query-like domains.  With a
+reference fasta, each r also gets a percentile within that query's
+r-distribution against the reference.
+
+  $ python -m seekr_tpu_torch.cli domain_pearson queries.fa targets.fa -r gencode.fa \\
+        -rp r_values.csv -pp percentiles.csv -w 1000 -sl 100 -k 6
+"""
+
+PWMS_DOC = """
+Weight k-mer count profiles by protein-binding motif PWMs: each sequence is
+scored against every position-weight-matrix file in a directory; a score is the
+PWM-alignment weight vector dotted with the sequence's k-mer counts.
+
+  $ python -m seekr_tpu_torch.cli pwms pwms/ counts.npy -k 5 -o pwm_scores.csv
+"""
+
+CANONICAL_GENCODE_DOC = """
+Keep only '-001'-named transcripts of an old-style GENCODE fasta.  Current
+releases dropped -001 numbering; use filter_gencode with a GTF instead.
+
+  $ python -m seekr_tpu_torch.cli canonical_gencode v22_lncRNAs.fa v22_canonical.fa -z 2
+"""
+
+FILTER_GENCODE_DOC = """
+Filter a GENCODE-format fasta by any combination of: minimum sequence length
+(-len, read from the header's length field), the Ensembl_canonical GTF tag
+(-can, needs -gtf), transcript isoform number (-iso, regex allowed, '0'
+disables), and exact-duplicate removal keeping the first occurrence (-rd).
+Writes '{outputname}.fa'.
+
+  $ python -m seekr_tpu_torch.cli filter_gencode v43_lncRNA.fa -gtf v43.gtf -len 500 -can -rd -o filtered
+  $ python -m seekr_tpu_torch.cli filter_gencode v43_lncRNA.fa -gtf v43.gtf -iso 201 -o iso201
+"""
+
+GEN_RAND_RNAS_DOC = """
+Random RNAs that keep the k-mer content of an input fasta: each sequence is
+replaced by a k-mer-multiset-preserving Euler shuffle, optionally with point
+mutations, optionally shuffling the pooled concatenation (-g).
+
+  $ python -m seekr_tpu_torch.cli gen_rand_rnas rnas.fa rand_rnas.fa -k 2 -m 5 -s 0
+"""
+
+DOWNLOAD_GENCODE_DOC = """
+Download a transcript fasta (and optionally the matching GTF) from GENCODE.
+'biotype' is 'all', 'pc' (protein-coding) or 'lncRNA'.  Without -r the latest
+release of the species is looked up; downloads are gunzipped unless -z is set.
+
+  $ python -m seekr_tpu_torch.cli download_gencode lncRNA
+  $ python -m seekr_tpu_torch.cli download_gencode lncRNA -s mouse -r M25 -z -g
+"""
+
+DOCTOR_DOC = """
+Environment health report: python, torch (and its CUDA), numpy and scipy; the
+card's name and power limit; the nvcc build of the kernels and one launch of
+count_kmers_smem against its plain version, in a subprocess under a timeout;
+the g++ build of the host library; the SEEKR_TPU_* variables that are set.
+Exit code 0 when no check fails, 1 otherwise.
+
+  $ python -m seekr_tpu_torch.cli doctor
+  $ python -m seekr_tpu_torch.cli doctor --no-device          # host-only checks
 """
 
 
@@ -426,22 +516,35 @@ def console_adj_pval(argv=None):
     parser.add_argument("-o", "--outputname", default=None,
                         help="path to save adjusted csv (csv appended).")
     parser.add_argument("-bi", "--binary_input", action="store_true",
-                        help="pval_path is a .npy artifact (not in this port "
-                             "yet: the streamed correction).")
+                        help="pval_path is a .npy artifact (find_pval -bo); the "
+                             "correction then streams with bounded memory.")
     parser.add_argument("-bo", "--binary_outfile", default=None,
-                        help="also write the corrected matrix as .npy (-bi "
-                             "mode; not in this port yet).")
+                        help="also write the corrected float64 matrix as .npy "
+                             "(-bi mode only).")
     parser.add_argument("--symmetric", default="auto", choices=["auto", "yes", "no"],
-                        help="-bi mode only (not in this port yet).")
+                        help="-bi mode only: force the upper-triangle (yes) or "
+                             "full-matrix (no) correction instead of the 5-decimal "
+                             "transpose detection, which reads the artifact once "
+                             "more.")
     args = _parse_args_or_exit(parser, argv)
-    if args.binary_input or args.binary_outfile or args.symmetric != "auto":
-        parser.error(f"-bi/-bo/--symmetric: the streamed correction comes with "
-                     f"{STREAM_ADJ_SLICE}")
+    _device(args)  # the correction runs on the host; the device rule holds
+
+    if args.binary_input:
+        from seekr_tpu_torch.stats.stream_adj import adj_pval_stream
+
+        adj_pval_stream(args.pval_path, args.method, float(args.alpha),
+                        outputname=args.outputname, out_npy=args.binary_outfile,
+                        symmetric={"auto": None, "yes": True, "no": False}[args.symmetric])
+        return
+    if args.binary_outfile:
+        parser.error("-bo requires -bi (the streamed binary path)")
+    if args.symmetric != "auto":
+        parser.error("--symmetric requires -bi (the in-memory path keeps the "
+                     "reference's auto-detection contract)")
 
     from seekr_tpu_torch.io.fast_csv import read_labeled_csv
     from seekr_tpu_torch.stats.adj_pval import adj_pval
 
-    _device(args)  # the correction runs on the host; the device rule holds
     adj_pval(read_labeled_csv(args.pval_path), args.method, float(args.alpha),
              args.outputname)
 
@@ -676,6 +779,231 @@ def console_query(argv=None):
                                           names, cols))
 
 
+# -- pipeline ----------------------------------------------------------------
+
+def console_pipeline(argv=None):
+    parser = _parser(PIPELINE_DOC)
+    parser.add_argument("seq1file", help="query fasta (rows of the output).")
+    parser.add_argument("-s2", "--seq2file", default=None,
+                        help="second fasta (columns); default: seq1file.")
+    parser.add_argument("-b", "--background", required=True,
+                        help="background fasta for norm vectors + null.")
+    parser.add_argument("-k", "--kmer", default=6, help="k-mer length.")
+    parser.add_argument("-l", "--log2", default="Log2.post", choices=LOG2_CHOICES,
+                        help="log2 transform mode.")
+    parser.add_argument("-m", "--method", default="fdr_bh",
+                        help="multiple-comparison correction method.")
+    parser.add_argument("-a", "--alpha", default=0.05, help="family-wise error rate.")
+    parser.add_argument("-sbs", "--subset_size", default=100000,
+                        help="max null-sample size.")
+    parser.add_argument("-sd", "--seed", default=None, help="seed for null subsampling.")
+    parser.add_argument("-o", "--outdir", default="seekr_out",
+                        help="artifact output directory.")
+    parser.add_argument("--leiden", action="store_true",
+                        help="append Leiden community detection on the query "
+                             "self-similarity graph (native engine); writes "
+                             "communities.csv.")
+    parser.add_argument("-lc", "--leiden_cutoff", default=0.0,
+                        help="edge threshold: r below this becomes 0 "
+                             "(kmer_leiden pearsoncutoff semantics).")
+    parser.add_argument("-la", "--leiden_algo", default="RBERVertexPartition",
+                        help="leidenalg partition algorithm name.")
+    parser.add_argument("-lr", "--leiden_resolution", default=1.0,
+                        help="resolution for RBConfig/RBER/CPM partitions.")
+    parser.add_argument("-dp", "--data_parallel", default=None, type=int,
+                        help="devices on the mesh 'data' axis (above 1: not in this "
+                             "port yet).")
+    parser.add_argument("-kp", "--kmer_parallel", default=1, type=int,
+                        help="devices on the mesh 'kmer' axis (above 1: not in this "
+                             "port yet).")
+    parser.add_argument("--coordinator", default=None,
+                        help="multi-host bootstrap address (not in this port yet).")
+    parser.add_argument("--num_processes", default=None, type=int,
+                        help="multi-host process count (not in this port yet).")
+    parser.add_argument("--process_id", default=None, type=int,
+                        help="multi-host process id (not in this port yet).")
+    args = _parse_args_or_exit(parser, argv)
+    _refuse_mesh(parser, args, "data_parallel", "kmer_parallel", "coordinator",
+                 "num_processes", "process_id")
+
+    from seekr_tpu_torch.models.workflow import run_workflow
+    from seekr_tpu_torch.utils.profiler import trace_session
+
+    device = _device(args)
+    with trace_session():  # a trace of the whole run when SEEKR_TPU_TRACE is set
+        run_workflow(args.seq1file, args.seq2file, args.background, k=int(args.kmer),
+                     log2=args.log2, adj_method=args.method, alpha=float(args.alpha),
+                     outdir=args.outdir, subset_size=int(args.subset_size),
+                     seed=None if args.seed is None else int(args.seed),
+                     leiden=args.leiden, leiden_cutoff=float(args.leiden_cutoff),
+                     leiden_algo=args.leiden_algo,
+                     leiden_resolution=float(args.leiden_resolution), device=device)
+
+
+# -- domain_pearson ----------------------------------------------------------
+
+def console_domain_pearson(argv=None):
+    parser = _parser(DOMAIN_PEARSON_DOC)
+    parser.add_argument("query", help="Fasta of query transcripts (profiled whole).")
+    parser.add_argument("target", help="Fasta of target sequences (tiled into windows).")
+    parser.add_argument("-r", "--reference", default=None,
+                        help="Fasta providing the percentile null distribution "
+                             "(optional).")
+    parser.add_argument("-rp", "--r_values_path", default="r_values.csv",
+                        help="CSV path for the window x query r-values.")
+    parser.add_argument("-pp", "--percentiles_path", default=None,
+                        help="CSV path for the window x query percentiles "
+                             "(needs --reference).")
+    parser.add_argument("-m", "--mean", default=None,
+                        help="Path to a .npy mean vector (default: computed from "
+                             "the reference fasta, else the windows).")
+    parser.add_argument("-s", "--std", default=None,
+                        help="Path to a .npy std vector (same default rule).")
+    parser.add_argument("-l", "--log2", default="Log2.post", choices=LOG2_CHOICES,
+                        help="Log2 transform mode.")
+    parser.add_argument("-k", "--kmer", default=6, help="Length of kmers to profile.")
+    parser.add_argument("-w", "--window", default=1000, help="Window width in bases.")
+    parser.add_argument("-sl", "--slide", default=100, help="Window stride in bases.")
+    args = _parse_args_or_exit(parser, argv)
+
+    from seekr_tpu_torch.models.domain import DomainPearson
+
+    DomainPearson(query_path=args.query, target_path=args.target,
+                  reference_path=args.reference, r_values_path=args.r_values_path,
+                  percentiles_path=args.percentiles_path,
+                  mean=args.mean if args.mean is not None else True,
+                  std=args.std if args.std is not None else True,
+                  log2=args.log2, k=int(args.kmer), window=int(args.window),
+                  slide=int(args.slide), device=_device(args)).run()
+
+
+# -- pwms --------------------------------------------------------------------
+
+def console_pwms(argv=None):
+    parser = _parser(PWMS_DOC)
+    parser.add_argument("pwm_dir", help="Directory of tab-separated PWM files "
+                                        "(Pos/A/C/G/U columns).")
+    parser.add_argument("counts", help="k-mer counts artifact (.npy or labeled CSV) "
+                                       "to score.")
+    parser.add_argument("-k", "--kmer", default=5,
+                        help="Length of kmers the counts were made with.")
+    parser.add_argument("-o", "--out_path", default=None,
+                        help="CSV path for the PWM x sequence score table.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)  # scoring runs on the host; the device rule holds
+
+    from seekr_tpu_torch.models.pwm import CountsWeighter
+
+    CountsWeighter(args.pwm_dir, args.counts, k=int(args.kmer), out_path=args.out_path).run()
+
+
+# -- data tools --------------------------------------------------------------
+
+def console_canonical_gencode(argv=None):
+    parser = _parser(CANONICAL_GENCODE_DOC)
+    parser.add_argument("in_fasta", help="Old-style GENCODE fasta to filter.")
+    parser.add_argument("out_fasta", help="Path for the filtered fasta.")
+    parser.add_argument("-z", "--zeros", default=2,
+                        help="Zeros in the kept suffix (2 -> '-001').")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.data.canonical import canonical_gencode
+
+    canonical_gencode(args.in_fasta, args.out_fasta, zeros=int(args.zeros))
+
+
+def console_filter_gencode(argv=None):
+    parser = _parser(FILTER_GENCODE_DOC)
+    parser.add_argument("fasta", help="Fasta file to filter (GENCODE format).")
+    parser.add_argument("-gtf", "--gtf_path", default=None,
+                        help="Matching gtf (needed for -can / -iso).")
+    parser.add_argument("-len", "--len_threshold", default=0,
+                        help="Keep sequences with length >= threshold.")
+    parser.add_argument("-can", "--canonical", action="store_true",
+                        help="Keep only Ensembl_canonical transcripts.")
+    parser.add_argument("-iso", "--isoform", default="0",
+                        help="Isoform number filter (regex allowed); '0' disables.")
+    parser.add_argument("-rd", "--rmdup", action="store_true",
+                        help="Remove exact-duplicate sequences (keep first).")
+    parser.add_argument("-o", "--outputname", default="test",
+                        help="Output name; '.fa' appended automatically.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.data.filter_gencode import filter_gencode
+
+    filter_gencode(args.fasta, args.gtf_path, int(args.len_threshold), args.canonical,
+                   args.isoform, args.rmdup, args.outputname)
+
+
+def console_gen_rand_rnas(argv=None):
+    parser = _parser(GEN_RAND_RNAS_DOC)
+    parser.add_argument("infasta", help="Full path of fasta file to shuffle.")
+    parser.add_argument("outfasta", help="Path for the shuffled fasta.")
+    parser.add_argument("-k", "--kmer", default=1,
+                        help="Size of the preserved kmers (1 = composition only).")
+    parser.add_argument("-m", "--mutations", default=0,
+                        help="Number of point mutations per sequence.")
+    parser.add_argument("-s", "--seed", default=None,
+                        help="RNG seed for reproducible output.")
+    parser.add_argument("-g", "--group", action="store_true",
+                        help="Shuffle the pooled concatenation of all sequences "
+                             "instead of each individually.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.data.rand_rnas import gen_rand_rnas
+
+    gen_rand_rnas(args.infasta, args.outfasta, k=int(args.kmer),
+                  mutations=int(args.mutations),
+                  seed=None if args.seed is None else int(args.seed), group=args.group)
+
+
+def console_download_gencode(argv=None):
+    parser = _parser(DOWNLOAD_GENCODE_DOC)
+    parser.add_argument("biotype", help="GENCODE set: 'all', 'pc', or 'lncRNA'.")
+    parser.add_argument("-s", "--species", default="human", help="'human' or 'mouse'.")
+    parser.add_argument("-g", "--gtf", action="store_true",
+                        help="Also download the comprehensive gtf file.")
+    parser.add_argument("-r", "--release", default=None,
+                        help="Specific release (e.g. 'M5'); latest if omitted.")
+    parser.add_argument("-fp", "--fasta_path", default=None,
+                        help="Output path for the fasta (.gz).")
+    parser.add_argument("-gp", "--gtf_path", default=None,
+                        help="Output path for the gtf (.gz).")
+    parser.add_argument("-z", "--zip", action="store_false",
+                        help="Set to keep the downloaded files gzipped.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.data.gencode import Downloader
+
+    Downloader().get_gencode(args.biotype, args.species, args.gtf, args.release,
+                             args.fasta_path, args.gtf_path, args.zip)
+
+
+# -- doctor ------------------------------------------------------------------
+
+def console_doctor(argv=None):
+    parser = argparse.ArgumentParser(usage=DOCTOR_DOC,
+                                     formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("--device-timeout", default=90.0, type=float,
+                        help="seconds before the card probe is declared hung.")
+    parser.add_argument("--no-device", action="store_true",
+                        help="skip the card, the CUDA build and the probe (host-only).")
+    parser.add_argument("--device", default="cuda:0",
+                        help="the CUDA card to probe, in a subprocess.")
+    argv = sys.argv[1:] if argv is None else argv
+    args = parser.parse_args(argv)  # a bare doctor runs every check
+
+    from seekr_tpu_torch.utils.doctor import run_doctor
+
+    healthy = run_doctor(device_timeout=args.device_timeout, skip_device=args.no_device,
+                         device=args.device)
+    sys.exit(0 if healthy else 1)
+
+
 # -- module dispatcher (python -m seekr_tpu_torch.cli <command> ...) -----------
 
 COMMANDS = {
@@ -688,6 +1016,14 @@ COMMANDS = {
     "kmer_leiden": console_kmer_leiden,
     "serve": console_serve,
     "query": console_query,
+    "pipeline": console_pipeline,
+    "domain_pearson": console_domain_pearson,
+    "pwms": console_pwms,
+    "canonical_gencode": console_canonical_gencode,
+    "filter_gencode": console_filter_gencode,
+    "gen_rand_rnas": console_gen_rand_rnas,
+    "download_gencode": console_download_gencode,
+    "doctor": console_doctor,
 }
 
 

@@ -46,6 +46,14 @@ def test_phases_rehearse_on_cpu():
     assert found["families_found"] == chip_smoke.TINY.leiden_families
     assert state["stats_breakdown"]["adj_pval_bitwise_numpy"]
     assert state["stats_breakdown"]["pvals_csv_bytes_equal_python"]
+    # phase 9 ran the workflow, the streamed correction, domain_pearson, pwms,
+    # the data tools and the doctor, and held every check
+    wf = state["workflow"]
+    assert wf["checks"] and all(wf["checks"].values())
+    assert wf["families_found"] == chip_smoke.TINY.wf_families
+    assert len(wf["adj_pval_bi"]) == 6 and wf["adj_pval_bi"][0]["stream_symmetric"]
+    assert wf["adj_pval_bi"][-1]["max_bucket_pairs"] == chip_smoke.TINY.adj_tie_cap
+    assert wf["doctor_rc"] == 0 and wf["domain_windows"] > chip_smoke.TINY.dom_targets
 
 
 def test_direct_bh_is_benjamini_hochberg():
@@ -132,3 +140,26 @@ def test_script_alone_fails(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_pwm_weights_helper_is_the_counts_weighter_rule():
+    from seekr_tpu_torch.models.pwm import CountsWeighter
+
+    rng = np.random.default_rng(3)
+    for table in chip_smoke.random_pwms(rng, 3, lengths=(2, 6)):
+        pwm = {b: dict(enumerate(table[:, c])) for b, c in zip("ACGT", range(4))}
+        weights = CountsWeighter(k=4).build_weights_dict(pwm)
+        want = [weights[km] for km in CountsWeighter(k=4).kmers]
+        np.testing.assert_allclose(chip_smoke.pwm_weights(table, 4), want, rtol=1e-12)
+
+
+def test_gencode_corpus_is_seeded_and_gencode_shaped():
+    seqs = ["ACGT" * (i + 50) for i in range(30)]
+    h1, gtf1, facts = chip_smoke.gencode_corpus(seqs, np.random.default_rng(4))
+    h2, gtf2, _ = chip_smoke.gencode_corpus(seqs, np.random.default_rng(4))
+    assert h1 == h2 and gtf1 == gtf2 and len(facts) == 30
+    for header, seq, (n, _, number, name) in zip(h1, seqs, facts):
+        fields = header.split("|")
+        assert int(fields[-2]) == len(seq) == n and fields[4] == name
+        assert name.endswith(f"-{number}") and len(number) == 3
+    assert gtf1.count("\ttranscript\t") == 30 and gtf1.count("\texon\t") == 30

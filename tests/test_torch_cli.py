@@ -149,9 +149,10 @@ def test_stats_chain(work, capsys):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["adj_pval", "p.csv", "fdr_bh", "-bi"], "streamed adj_pval slice"),
-    (["adj_pval", "p.csv", "fdr_bh", "-bo", "x.npy"], "streamed adj_pval slice"),
-    (["adj_pval", "p.csv", "fdr_bh", "--symmetric", "yes"], "streamed adj_pval slice"),
+    (["pipeline", "q.fa", "-b", "b.fa", "-dp", "2"], "multi-GPU slice"),
+    (["pipeline", "q.fa", "-b", "b.fa", "-kp", "2"], "multi-GPU slice"),
+    (["pipeline", "q.fa", "-b", "b.fa", "--coordinator", "h:1", "--num_processes", "2",
+      "--process_id", "0"], "multi-GPU slice"),
     (["find_dist", "b.fa", "-dp", "2"], "multi-GPU slice"),
     (["find_dist", "b.fa", "-kp", "4"], "multi-GPU slice"),
     (["find_dist", "b.fa", "-fm", "-pf", "plot"], "viz slice"),
@@ -203,7 +204,7 @@ def test_kmer_leiden_files_match(work, stream):
 def test_dispatcher_help_and_unknown(capsys):
     assert cli.main([]) == 0
     out = capsys.readouterr().out
-    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 9
+    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 17
     assert cli.main(["nope"]) == 2
     with pytest.raises(SystemExit) as exc:
         cli.main(["kmer_counts"])  # a bare command prints its help

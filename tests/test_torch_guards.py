@@ -72,6 +72,13 @@ def test_port_imports_no_plotting_library_at_module_level(path):
             f"{path} imports {names} at module level"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_needs_no_requests(path):
+    # the card's machine has no requests: the downloader reads with urllib
+    for name in imported_modules(path):
+        assert name.split(".")[0] != "requests", f"{path} imports {name}"
+
+
 def test_port_imports_without_jax_in_a_fresh_process():
     import subprocess
 
@@ -79,9 +86,13 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "seekr_tpu_torch.models.pipeline, seekr_tpu_torch.utils.state, "
             "seekr_tpu_torch.stats, seekr_tpu_torch.cli, seekr_tpu_torch.io.stream, "
             "seekr_tpu_torch.ops.ecdf, seekr_tpu_torch.serve, seekr_tpu_torch.graph, "
-            "seekr_tpu_torch.native, seekr_tpu_torch.viz.style; "
+            "seekr_tpu_torch.native, seekr_tpu_torch.viz.style, "
+            "seekr_tpu_torch.stats.stream_adj, seekr_tpu_torch.models.workflow, "
+            "seekr_tpu_torch.models.domain, seekr_tpu_torch.models.pwm, "
+            "seekr_tpu_torch.data, seekr_tpu_torch.utils.doctor, "
+            "seekr_tpu_torch.utils.logging, seekr_tpu_torch.utils.profiler; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'seekr_tpu', 'pandas', 'networkx', 'matplotlib')]; "
+            "('jax', 'seekr_tpu', 'pandas', 'networkx', 'matplotlib', 'requests')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -121,6 +132,31 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     with pytest.raises(OSError):
         cli.main(["query", str(tmp_path / "q.fa"), "--socket", str(tmp_path / "none.sock"),
                   "--timeout", "5"])
+
+
+def test_slice_six_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.models.domain import DomainPearson
+    from seekr_tpu_torch.models.workflow import run_workflow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "a.fa").write_text(">a\nACGTACGT\n>b\nGGGTTTAA\n")
+    fa = str(tmp_path / "a.fa")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_workflow(fa, background=fa, k=2, outdir=str(tmp_path / "o"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DomainPearson(fa, fa, k=2)
+    for argv in (["pipeline", fa, "-b", fa, "-k", "2", "-o", str(tmp_path / "o")],
+                 ["domain_pearson", fa, fa, "-k", "2"],
+                 ["pwms", str(tmp_path), "c.npy"],
+                 ["canonical_gencode", fa, str(tmp_path / "c.fa")],
+                 ["filter_gencode", fa, "-rd"],
+                 ["gen_rand_rnas", fa, str(tmp_path / "r.fa")],
+                 ["download_gencode", "lncRNA", "-r", "40"],
+                 ["adj_pval", "p.npy", "fdr_bh", "-bi"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert not (tmp_path / "o").exists()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -514,3 +550,38 @@ def test_gpu_kmer_leiden_matches_cpu_run(tmp_path):
     np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-5)
     clear = np.abs(cpu - 0.2) > 1e-5
     assert np.array_equal((gpu > 0) & clear, (cpu > 0) & clear)
+
+
+@pytest.mark.gpu
+def test_gpu_workflow_matches_cpu_run(tmp_path):
+    device = need_cuda()
+    from seekr_tpu_torch.models.domain import DomainPearson
+    from seekr_tpu_torch.models.workflow import run_workflow
+
+    fixtures = ROOT / "tests" / "fixtures"
+    queries, background = str(fixtures / "ldseq.fa"), str(fixtures / "seqs1.fa")
+    runs = {}
+    for dev in (device, "cpu"):
+        before = count_cuda.launches["count_kmers_smem"]
+        runs[str(dev)] = run_workflow(queries, background=background, k=3,
+                                      outdir=str(tmp_path / str(dev).replace(":", "_")),
+                                      subset_size=500, seed=2, leiden=True, leiden_cutoff=0.1,
+                                      device=dev)
+        if dev == device:
+            assert count_cuda.launches["count_kmers_smem"] > before
+    gpu, cpu = runs[str(device)], runs["cpu"]
+    np.testing.assert_allclose(gpu["mean"], cpu["mean"], rtol=1e-6)
+    np.testing.assert_allclose(gpu["counts1"], cpu["counts1"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gpu["pearson"], cpu["pearson"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gpu["null_sample"], cpu["null_sample"], rtol=0, atol=1e-5)
+    bkg = np.sort(cpu["null_sample"].astype(np.float64))
+    r = cpu["pearson"].astype(np.float64)
+    ties = np.searchsorted(bkg, r + 1e-5, side="right") > np.searchsorted(bkg, r - 1e-5)
+    assert np.array_equal(gpu["pvals"].values[~ties], cpu["pvals"].values[~ties])
+    assert len(set(zip(gpu["communities"].tolist(), cpu["communities"].tolist()))) == \
+        len(set(cpu["communities"].tolist()))
+    before = count_cuda.launches["count_kmers_smem"]
+    dom = {dev: DomainPearson(queries, background, background, k=3, window=200, slide=50,
+                              device=dev).run().values for dev in (device, "cpu")}
+    assert count_cuda.launches["count_kmers_smem"] > before
+    np.testing.assert_allclose(dom[device], dom["cpu"], rtol=0, atol=1e-5)
