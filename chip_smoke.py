@@ -84,7 +84,7 @@ and runs these phases, each a function of (device, scale, state):
    Then ``find_pval --stream -bo`` for 13,000 x 13,000 and 1,000 x 13,000,
    and ``adj_pval_stream`` on each, in a process of its own beside the
    in-memory ``adj_pval`` (fdr_bh; on the cross matrix also bonferroni, holm,
-   fdr_by; and fdr_bh on its first 100 rows with ``max_bucket_pairs`` 2,000,
+   fdr_by; and fdr_bh on its first 50 rows with ``max_bucket_pairs`` 2,000,
    which forces the tie-mass segments): each pass's wall s, scratch bytes and
    peak resident set, the .npy bitwise and the CSV byte-equal.  ``DomainPearson`` (8 queries, 1,000
    targets in windows of 1,000 every 100, the corpus as reference): r within
@@ -95,12 +95,41 @@ and runs these phases, each a function of (device, scale, state):
    corpus with GENCODE-style headers and a seeded GTF: ``canonical_gencode``
    and ``filter_gencode`` against a direct filter, ``gen_rand_rnas -k 2`` on
    1,000 transcripts with every 2-mer count kept, bitwise.  ``doctor`` in a
-   subprocess exits 0 and names the card.
+   subprocess exits 0 and names the card;
+10. the plots' and graphs' compute, at the reference's background size.  The
+   dendrogram's path on the k = 6 Log2.post profiles of phase 8's 13,000 family
+   transcripts (counted on the card), rows [13,000 x 4,096] and columns: the
+   device pdist (routed there by ``use_device_pdist``), ``linkage`` (complete)
+   and the leaf order, with each step timed (the Gram product and the distance
+   epilogue by CUDA events, the copy, ``triu_values``, ``linkage``,
+   ``leaves_list``).  Checked: every row distance within 1e-5 of a float64
+   pdist on the card, NaN where NaN (the column distances, each a sum over
+   13,000 values, within seekr_tpu's budget against scipy, rtol 1e-4 / atol
+   1e-5; both errors' maximum and 99.9th percentile are printed); the first
+   1,000 rows within rtol 1e-4 / atol
+   1e-5 of scipy's pdist, and their leaf order equal to float64's unless two
+   float64 merge heights lie within 1e-5 (then the share of equal leaves is
+   printed); the adjusted Rand index of 260 clusters against the planted
+   families is printed.  The heatmap's row and column orders of phase 3's
+   4,096 x 4,096 self-Pearson block, its pdist held to float64 likewise.  The
+   barplots' counts of phase 3's corpus (on the card, within 1e-5 of float64)
+   and their orders (count: the first 10 transcripts; mean and sd: all
+   13,000), equal to float64's away from 1e-5 ties.  The textplots' word
+   coordinates of 10 words on phase 4's two long transcripts, equal to a
+   window scan.  ``visualize_distro``'s streamed statistics of phase 3's
+   matrix (mirrored, as an ``.npy``): n exact, mean and sd within 1e-9
+   relative of float64, the median within one fine bin of the middle value,
+   each pass and the symmetry probe timed.  ``help`` in a fresh process: 25
+   sections.  The drawing entry points draw where matplotlib, seaborn and
+   networkx are installed, and otherwise raise ``ModuleNotFoundError`` naming
+   the missing one (the card's machine has none; the drawing is held to
+   seekr_tpu on the CPU by ``tests/test_torch_viz.py`` and its neighbours).
 
-Launch counts are set to 0 just before phases 3, 4, 6, 7, 8 and 9 (the workflow,
-``domain_pearson`` and the PWM counts) drive the main path and read just after;
-the run fails if a kernel of the path was not launched, and phase 9 fails if the
-workflow or ``domain_pearson`` did not launch ``count_kmers_smem``.
+Launch counts are set to 0 just before phases 3, 4, 6, 7, 8, 9 (the workflow,
+``domain_pearson`` and the PWM counts) and 10 (the profiles and the barplots'
+counts) drive the main path and read just after; the run fails if a kernel of
+the path was not launched, and phases 9 and 10 fail if their counting did not
+launch ``count_kmers_smem``.
 The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -171,6 +200,8 @@ class Scale:
     pwm_count: int       # random PWMs besides the fixture
     pwm_k: int           # k of the counts the PWMs score
     rand_m: int          # transcripts shuffled by gen_rand_rnas
+    plot_check_rows: int  # head rows of the profiles held against scipy's pdist
+    heatmap_rows: int    # edge of phase 3's self-Pearson block the heatmap clusters
 
 
 FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
@@ -179,8 +210,9 @@ FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
              stats_plain_cells=4096, serve_rounds=3, serve_q1=10, serve_big=3,
              serve_big_q=128, serve_burst=(16, 8), serve_grow=(40, 300), leiden_k=6,
              leiden_families=260, leiden_members=50, leiden_dense_export=500, wf_k=6,
-             wf_families=52, adj_tie_cap=2_000, adj_tie_rows=100, dom_queries=8,
-             dom_targets=1000, dom_window=(1000, 100), pwm_count=64, pwm_k=5, rand_m=1000)
+             wf_families=52, adj_tie_cap=2_000, adj_tie_rows=50, dom_queries=8,
+             dom_targets=1000, dom_window=(1000, 100), pwm_count=64, pwm_k=5, rand_m=1000,
+             plot_check_rows=1000, heatmap_rows=4096)
 TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2,
              stats_subset=600, stats_query=16, stats_self=24, stats_pairs=500,
@@ -188,7 +220,8 @@ TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              serve_big_q=16, serve_burst=(4, 2), serve_grow=(40, 200), leiden_k=4,
              leiden_families=6, leiden_members=8, leiden_dense_export=20, wf_k=4,
              wf_families=3, adj_tie_cap=2, adj_tie_rows=16, dom_queries=2, dom_targets=8,
-             dom_window=(300, 50), pwm_count=4, pwm_k=3, rand_m=16)
+             dom_window=(300, 50), pwm_count=4, pwm_k=3, rand_m=16, plot_check_rows=20,
+             heatmap_rows=40)
 
 
 def log(*parts) -> None:
@@ -557,6 +590,7 @@ def phase_counter(device, scale, state):
                              f"{out['max_abs_vs_pipeline']} > 1e-4")
     state["large_k_seqs"] = large_k_seqs
     state["seqs"] = seqs
+    state["long_pair"] = (long_seqs[7], long_seqs[19])  # phase 10's textplot words
 
 
 def _needed_bytes(lengths, lpad: int, k: int) -> int:
@@ -2334,8 +2368,443 @@ def phase_workflow(device, scale, state):
         raise AssertionError(f"workflow checks failed: {failures}")
 
 
+PLOT_METHOD = "complete"   # the linkage of kmer_heatmap's and kmer_dendrogram's defaults
+PLOT_METRIC = "correlation"
+PLOT_TOL = 1e-5            # device pdist against float64, and the merge-height gap
+TEXT_WORDS = 10            # words of the textplot coordinates, the reference's maximum
+DRAWING_NEEDS = {          # the packages each drawing entry point imports
+    "kmer_heatmap": ("matplotlib", "seaborn"), "kmer_dendrogram": ("matplotlib",),
+    "kmer_count_barplot": ("matplotlib", "seaborn"),
+    "kmer_msd_barplot": ("matplotlib", "seaborn"), "kmer_comp_textplot": ("matplotlib",),
+    "kmer_indi_textplot": ("matplotlib",), "visualize_distro": ("matplotlib",),
+    "plot_fits": ("matplotlib",), "plot_network": ("matplotlib", "networkx"),
+    "graph": ("networkx",),
+}
+
+
+def f64_distances(x, device):
+    """[m, m] correlation distances of the rows of ``x`` in float64 on ``device``."""
+    import torch
+
+    c = torch.as_tensor(np.asarray(x), device=device).to(torch.float64)
+    c = c - c.mean(dim=1, keepdim=True)
+    c = c / torch.sqrt((c * c).sum(dim=1, keepdim=True))
+    return 1.0 - c @ c.T
+
+
+def condensed_err(got, full64) -> dict:
+    """A condensed vector against the strict upper triangle of a float64 square:
+    the largest and the 99.9th-percentile absolute difference over the values
+    that are not NaN, whether the NaNs agree, and whether every value is within
+    seekr_tpu's budget against scipy (rtol 1e-4 / atol 1e-5)."""
+    from seekr_tpu_torch.utils.adj import triu_values
+
+    want = triu_values(np.ascontiguousarray(full64))
+    nan = np.isnan(want)
+    diff = np.abs(got[~nan] - want[~nan])
+    return {"max_abs": float(diff.max()) if diff.size else 0.0,
+            "p99_9_abs": float(np.quantile(diff, 0.999)) if diff.size else 0.0,
+            "same_nan": bool(np.array_equal(np.isnan(got), nan)),
+            "within_rtol_1e-4_atol_1e-5": bool(np.allclose(got, want, rtol=1e-4, atol=1e-5,
+                                                           equal_nan=True))}
+
+
+def order_within(order, keys, ascending: bool, tol: float) -> bool:
+    """Whether ``keys[order]`` is sorted up to ``tol``: no two positions out of
+    order whose keys differ by more than ``tol``."""
+    k = np.asarray(keys, np.float64)[np.asarray(order)]
+    if not ascending:
+        k = -k
+    return bool((np.maximum.accumulate(k) - k <= tol).all())
+
+
+def word_scan(seq: str, word: str) -> list:
+    """Positions covered by ``word`` in ``seq``, by comparing every window."""
+    s = np.frombuffer(seq.encode(), np.uint8)
+    w = np.frombuffer(word.encode(), np.uint8)
+    if len(w) > len(s):
+        return []
+    windows = np.lib.stride_tricks.sliding_window_view(s, len(w))
+    starts = np.nonzero((windows == w).all(axis=1))[0]
+    return np.unique(starts[:, None] + np.arange(len(w))).tolist()
+
+
+def leaf_agreement(d_got, d_f64, method) -> dict:
+    """Leaf orders of ``linkage`` over two condensed vectors: equal, or where two
+    float64 merge heights lie within ``PLOT_TOL`` the share of equal leaves."""
+    from scipy.cluster.hierarchy import leaves_list, linkage
+
+    z64 = linkage(d_f64, method)
+    a, b = leaves_list(linkage(d_got, method)), leaves_list(z64)
+    gap = float(np.diff(np.sort(z64[:, 2])).min()) if len(z64) > 1 else np.inf
+    out = {"min_f64_height_gap": gap, "leaves_equal": bool(np.array_equal(a, b)),
+           "equal_leaf_share": float(np.mean(a == b))}
+    out["holds"] = out["leaves_equal"] or gap <= PLOT_TOL
+    return out
+
+
+@contextmanager
+def pdist_route(rows, cols):
+    """``pdist_auto``'s own routing where it sends [rows, cols] to the card; at a
+    rehearsal's size, where it would not, ``SEEKR_TPU_PDIST=device`` forces it.
+    Yields whether the route was forced."""
+    import os
+
+    from seekr_tpu_torch.ops.dist import use_device_pdist
+
+    forced = not use_device_pdist(rows, cols, PLOT_METRIC)
+    before = os.environ.get("SEEKR_TPU_PDIST")
+    if forced:
+        os.environ["SEEKR_TPU_PDIST"] = "device"
+    try:
+        yield forced
+    finally:
+        if before is None:
+            os.environ.pop("SEEKR_TPU_PDIST", None)
+        else:
+            os.environ["SEEKR_TPU_PDIST"] = before
+
+
+def drawing_branch(device, seqs, seed) -> dict:
+    """Each drawing entry point: drawn (tiny inputs, 72 dpi) where the packages it
+    imports are installed, else it must raise ModuleNotFoundError naming one of
+    the missing ones."""
+    import importlib
+    import importlib.util
+
+    from seekr_tpu_torch.graph.kmer_leiden import plot_network
+    from seekr_tpu_torch.graph.maker import Maker
+    from seekr_tpu_torch.io.fast_csv import LabeledMatrix
+    from seekr_tpu_torch.stats.find_dist import plot_fits
+    from seekr_tpu_torch.viz import (kmer_comp_textplot, kmer_count_barplot,
+                                     kmer_dendrogram, kmer_heatmap, kmer_indi_textplot,
+                                     kmer_msd_barplot, visualize_distro)
+
+    missing = [p for p in ("matplotlib", "seaborn", "networkx")
+               if importlib.util.find_spec(p) is None]
+    write_fasta_file("draw.fa", [s[:60] for s in seqs[:12]])
+    sim = np.corrcoef(np.random.default_rng(seed).normal(size=(6, 20)))
+    names = [f"t{i}" for i in range(6)]
+    small = LabeledMatrix(sim, names, names)
+    np.save("draw_sim.npy", sim)
+    graph = LabeledMatrix(np.where(sim > 0, sim, 0.0) - np.eye(6), names, names)
+    fits = [("norm", 0.01, (0.0, 1.0)), ("expon", 0.02, (0.0, 1.0))]
+    k, vectors = 2, ("draw_mean.npy", "draw_std.npy")
+    np.save(vectors[0], np.zeros(16))
+    np.save(vectors[1], np.ones(16))
+    calls = {
+        "kmer_heatmap": lambda: kmer_heatmap(small, -1, 1, outputname="d_heat", hformat="png",
+                                             hdpi=72, device=device),
+        "kmer_dendrogram": lambda: kmer_dendrogram(small, outputname="d_dendro", pformat="png",
+                                                   pdpi=72, device=device),
+        "kmer_count_barplot": lambda: kmer_count_barplot("draw.fa", *vectors, k,
+                                                         outputname="d_count", pformat="png",
+                                                         pdpi=72, device=device),
+        "kmer_msd_barplot": lambda: kmer_msd_barplot("draw.fa", *vectors, k, outputname="d_msd",
+                                                     pformat="png", pdpi=72, device=device),
+        "kmer_comp_textplot": lambda: kmer_comp_textplot("draw.fa", "draw.fa", ["AC", "GT"],
+                                                         outputname="d_comp", plotformat="png",
+                                                         plotdpi=72),
+        "kmer_indi_textplot": lambda: kmer_indi_textplot("draw.fa", ["AC"], outputpath="d_indi_",
+                                                         plotformat="png", plotdpi=72),
+        "visualize_distro": lambda: visualize_distro("draw_sim.npy", outputname="d_distro",
+                                                     pformat="png", pdpi=72),
+        "plot_fits": lambda: plot_fits(sim.ravel(), fits, "d_fits"),
+        "plot_network": lambda: plot_network(graph, np.arange(6) % 2, "d_network"),
+        "graph": lambda: Maker("draw_sim.npy", gml_path="d_graph.gml",
+                               csv_path="d_graph.csv", seed=0).make_gml_csv_files(),
+    }
+    out = {"missing": missing, "drawn": [], "raised": {}}
+    before = set(Path(".").iterdir())
+    for name, call in calls.items():
+        absent = [p for p in DRAWING_NEEDS[name] if p in missing]
+        if not absent:
+            call()
+            out["drawn"].append(name)
+            continue
+        try:
+            call()
+        except ModuleNotFoundError as err:
+            if err.name not in absent:
+                raise
+            out["raised"][name] = err.name
+        else:
+            raise AssertionError(f"{name} ran without {absent}")
+    written = [p for p in set(Path(".").iterdir()) - before if p.name.startswith("d_")]
+    out["files_written"] = len(written)
+    out["files_non_empty"] = all(p.stat().st_size > 0 for p in written)
+    return out
+
+
+def phase_plots(device, scale, state):
+    """Phase 10: the plots' and graphs' compute on the card at the reference's
+    background size, ``help``, and the drawing entry points."""
+    import os
+
+    import torch
+    from scipy.cluster.hierarchy import fcluster, leaves_list, linkage
+    from scipy.spatial.distance import pdist
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.io.fast_csv import LabeledMatrix
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.models.pearson import mirror_upper_inplace
+    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops.dist import distance_matrix, pdist_device
+    from seekr_tpu_torch.ops.precision import pearson_precision
+    from seekr_tpu_torch.utils.adj import triu_values
+    from seekr_tpu_torch.viz import long_form
+    from seekr_tpu_torch.viz.kmer_count_barplot import _barplot_rows
+    from seekr_tpu_torch.viz.kmer_dendrogram import _dendrogram_linkage
+    from seekr_tpu_torch.viz.kmer_heatmap import _cluster_orders
+    from seekr_tpu_torch.viz.kmer_msd_barplot import _msd_rows
+    from seekr_tpu_torch.viz.textplot import find_word_coordinates
+    from seekr_tpu_torch.viz.visualize_distro import stream_distro_stats
+
+    here = Path(__file__).resolve().parent
+    fam_seqs, truth = state["families"]
+    seqs, k = state["seqs"], scale.leiden_k
+    m, n = len(fam_seqs), 4 ** k
+    check_rows = min(scale.plot_check_rows, m)
+    out = {"phase": "plots", "card": state.get("smi"), "k": k, "profiles": [m, n]}
+    checks = {}
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            write_fasta_file("families.fa", fam_seqs)  # set-up: the user's files
+            write_fasta_file("corpus.fa", seqs)
+            cli.main(["norm_vectors", "corpus.fa", "-k", str(k), "-mv", "mean.npy", "-sv",
+                      "std.npy", "--device", str(device)])
+
+            # -- the main path: the dendrogram's profiles and both directions,
+            # the heatmap's orders, the barplots' counts and rows ---------------
+            count_cuda.reset_launches()
+            if is_cuda(device):
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            counter = KmerCounter("families.fa", k=k, silent=True, device=device)
+            profiles = counter.get_counts()
+            out["profiles_s"] = time.perf_counter() - t0
+            labeled = LabeledMatrix(profiles, [h[1:] for h in counter.headers], counter.kmers)
+            with pdist_route(m, n) as forced:
+                out["pdist_forced_to_device"] = forced
+                t0 = time.perf_counter()
+                z_row, _, n_leaves = _dendrogram_linkage(labeled, "row", PLOT_METRIC,
+                                                         PLOT_METHOD, device)
+                out["dendrogram_row_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                z_col, _, _ = _dendrogram_linkage(labeled, "column", PLOT_METRIC,
+                                                  PLOT_METHOD, device)
+                out["dendrogram_column_s"] = time.perf_counter() - t0
+            hm = min(scale.heatmap_rows, state["sim"].shape[0])
+            block = np.ascontiguousarray(state["sim"][:hm, :hm])
+            with pdist_route(hm, hm) as forced:
+                out["heatmap_pdist_forced_to_device"] = forced
+                t0 = time.perf_counter()
+                _, row_order, _, col_order = _cluster_orders(block, PLOT_METRIC, PLOT_METHOD,
+                                                             device)
+                out["heatmap_orders_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            headers, counts, kmers = long_form.counted_profiles(
+                "corpus.fa", "mean.npy", "std.npy", k, "Log2.post", device)
+            count_rows = _barplot_rows(headers, counts, kmers, "ascending", 10)
+            mean_rows = _msd_rows(headers, counts, kmers, "mean", "descending", 10)
+            sd_rows = _msd_rows(headers, counts, kmers, "sd", "ascending", 10)
+            out["barplots_s"] = time.perf_counter() - t0
+            if is_cuda(device):
+                out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
+            smem = count_cuda.launches["count_kmers_smem"]
+            read_launches(state, "plots")
+            out["smem_launches"] = smem
+            if is_cuda(device) and smem == 0:
+                raise AssertionError("the plots' counting never launched count_kmers_smem")
+
+            # -- the dendrogram's pdist, step by step (not counted) ---------------
+            x = torch.as_tensor(profiles, device=device)
+            stages = {}
+            if is_cuda(device):
+                def gram():
+                    with pearson_precision():
+                        return x @ x.T
+                stages["gram_product_ms"] = cuda_ms(gram, 3)
+                stages["distance_matrix_ms"] = cuda_ms(
+                    lambda: distance_matrix(x, PLOT_METRIC), 3)
+            full = distance_matrix(x, PLOT_METRIC)
+            sync(device)
+            t0 = time.perf_counter()
+            full = full.cpu().numpy()
+            stages["device_to_host_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            d_row = triu_values(full.astype(np.float64))
+            stages["triu_values_s"] = time.perf_counter() - t0
+            del full
+            t0 = time.perf_counter()
+            z_again = linkage(d_row, PLOT_METHOD)
+            stages["linkage_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            leaves_list(z_again)
+            stages["leaves_list_s"] = time.perf_counter() - t0
+            if is_cuda(device):
+                with pdist_route(m, n):
+                    stages["profiled_wall_s"], stages["device_busy_s"] = profiled_busy(
+                        device, lambda: _dendrogram_linkage(labeled, "row", PLOT_METRIC,
+                                                            PLOT_METHOD, device))
+                if stages["device_busy_s"] is not None:
+                    stages["device_busy_share"] = (stages["device_busy_s"]
+                                                   / stages["profiled_wall_s"])
+            out["row_stages"] = stages
+            checks["the entry path's linkage equals the step-by-step one"] = bool(
+                np.array_equal(z_row, z_again))
+            del z_again
+
+            # -- checks ------------------------------------------------------------
+            full64 = f64_distances(profiles, device).cpu().numpy()
+            err = out["row_pdist_vs_f64"] = condensed_err(d_row, full64)
+            checks["row pdist within 1e-5 of float64, NaN where NaN"] = (
+                err["same_nan"] and err["max_abs"] <= PLOT_TOL)
+            del full64, d_row
+            # the columns sum 13,000 products per distance, where the rows sum
+            # 4,096: they are held to seekr_tpu's budget against scipy instead
+            col64 = f64_distances(profiles.T, device).cpu().numpy()
+            d_col = pdist_device(profiles.T, PLOT_METRIC, device=device)
+            err = out["column_pdist_vs_f64"] = condensed_err(d_col, col64)
+            checks["column pdist within rtol 1e-4 / atol 1e-5 of float64, NaN where NaN"] = (
+                err["same_nan"] and err["within_rtol_1e-4_atol_1e-5"])
+            del col64, d_col
+            head = profiles[:check_rows]
+            d_head = pdist_device(head, PLOT_METRIC, device=device)
+            t0 = time.perf_counter()
+            d_scipy = pdist(head.astype(np.float64), PLOT_METRIC)
+            out["scipy_pdist_head_s"] = time.perf_counter() - t0
+            out["head_rows"] = check_rows
+            out["head_pdist_max_abs_vs_scipy"] = float(np.abs(d_head - d_scipy).max())
+            checks["head pdist within rtol 1e-4 / atol 1e-5 of scipy"] = bool(
+                np.allclose(d_head, d_scipy, rtol=1e-4, atol=1e-5))
+            out["head_leaves"] = leaf_agreement(d_head, d_scipy, PLOT_METHOD)
+            checks["head leaf order equal to float64's where no merge heights tie"] = (
+                out["head_leaves"]["holds"])
+            clusters = fcluster(z_row, int(truth.max()) + 1, "maxclust")
+            out["families_adjusted_rand_index"] = adjusted_rand_index(clusters, truth)
+            out["column_linkage_rows"] = len(z_col)
+            checks["the card's pdist routed by use_device_pdist itself (rehearsals force it)"] = (
+                not is_cuda(device) or not (out["pdist_forced_to_device"]
+                                            or out["heatmap_pdist_forced_to_device"]))
+            checks["linkages have m - 1 merges"] = (len(z_row) == m - 1
+                                                    and len(z_col) == n - 1
+                                                    and n_leaves == m)
+
+            block64 = f64_distances(block, device).cpu().numpy()
+            d_block = pdist_device(block, PLOT_METRIC, device=device)
+            err = out["heatmap_pdist_vs_f64"] = condensed_err(d_block, block64)
+            checks["heatmap pdist within 1e-5 of float64, NaN where NaN"] = (
+                err["same_nan"] and err["max_abs"] <= PLOT_TOL)
+            checks["heatmap orders are permutations"] = (
+                sorted(row_order.tolist()) == list(range(hm))
+                and sorted(col_order.tolist()) == list(range(hm)))
+            del block64, d_block
+
+            mean_v, std_v = (torch.as_tensor(np.load(f), device=device, dtype=torch.float64)
+                             for f in ("mean.npy", "std.npy"))
+            counts64 = f64_normalize(plain_raw_counts(seqs, k, device), mean_v,
+                                     std_v)[0].cpu().numpy()
+            out["barplot_counts_max_abs_vs_f64"] = float(np.abs(counts - counts64).max())
+            checks["barplot counts within 1e-5 of float64"] = (
+                out["barplot_counts_max_abs_vs_f64"] <= PLOT_TOL)
+            index = {w: j for j, w in enumerate(kmers)}
+            head10 = counts64[:10]
+            orders = {
+                "count ascending": (count_rows, np.abs(head10 - head10.mean(0)).sum(0), True),
+                "msd mean descending": (mean_rows, counts64.mean(0), False),
+                "msd sd ascending": (sd_rows, counts64.std(0, ddof=1), True)}
+            for name, (rows, keys, ascending) in orders.items():
+                samples = len(set(rows["Sample"]))  # each word's rows are consecutive
+                order = [index[w] for w in rows["Kword"][::samples]]
+                checks[f"barplot {name} order equal to float64's away from 1e-5 ties"] = (
+                    order_within(order, keys, ascending, PLOT_TOL))
+            out["barplot_rows"] = [len(r["Kword"]) for r in (count_rows, mean_rows, sd_rows)]
+            checks["barplot rows: 10 words of 10 samples, 10 of every sequence"] = (
+                out["barplot_rows"] == [10 * min(10, len(headers)), 10 * len(headers),
+                                        10 * len(headers)])
+            del counts64
+
+            # -- textplot coordinates ----------------------------------------------
+            rng = np.random.default_rng(state["seed"] + 12)
+            words = ["".join(rng.choice(list("ACGT"), size=int(rng.integers(2, 7))))
+                     for _ in range(TEXT_WORDS)]
+            t0 = time.perf_counter()
+            coords = [[find_word_coordinates(s, w).tolist() for w in words]
+                      for s in state["long_pair"]]
+            out["word_coordinates_s"] = time.perf_counter() - t0
+            out["word_positions"] = [sum(len(c) for c in cs) for cs in coords]
+            checks["word coordinates equal to a window scan"] = all(
+                c == word_scan(s, w) for s, cs in zip(state["long_pair"], coords)
+                for w, c in zip(words, cs))
+
+            # -- visualize_distro's streamed statistics ------------------------------
+            sim = state["sim"].copy()
+            mirror_upper_inplace(sim)
+            np.save("sim.npy", sim)
+            del sim
+            with captured_stages() as rows:
+                t0 = time.perf_counter()
+                counts_h, edges, n_vals, mean, sd, median = stream_distro_stats("sim.npy")
+                out["distro_stream_s"] = time.perf_counter() - t0
+            out["distro_stages_s"] = dict(rows)
+            vals = triu_values(np.load("sim.npy").astype(np.float64))
+            vals = vals[np.isfinite(vals)]
+            fine = (edges[-1] - edges[0]) / (1 << 20)
+            rank = (vals.size + 1) // 2 - 1  # the value whose fine bin the stream reports
+            middle = float(np.partition(vals, rank)[rank])
+            out["distro"] = {"n": n_vals, "mean": mean, "sd": sd, "median_approx": median,
+                             "f64_mean": float(vals.mean()), "f64_sd": float(vals.std()),
+                             "f64_middle_value": middle, "f64_median": float(np.median(vals)),
+                             "fine_bin": fine}
+            checks["distro n exact"] = n_vals == vals.size
+            checks["distro mean and sd within 1e-9 relative of float64"] = bool(
+                abs(mean - vals.mean()) <= 1e-9 * abs(vals.mean())
+                and abs(sd - vals.std()) <= 1e-9 * vals.std())
+            checks["distro median within one fine bin of the middle value"] = bool(
+                abs(median - middle) <= fine)
+            checks["distro histogram holds every value"] = int(counts_h.sum()) == n_vals
+            del vals
+
+            # -- help in a fresh process, and the drawing --------------------------
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "seekr_tpu_torch.cli", "help"],
+                                  cwd=here, capture_output=True, text=True, timeout=600)
+            out["help_s"] = time.perf_counter() - t0
+            lines = proc.stdout.splitlines()
+            sections = [lines[i + 1] for i in range(len(lines) - 2)
+                        if lines[i] == lines[i + 2] == "=" * 25]
+            out["help_sections"] = len(sections)
+            checks["help: one section per command, every flag table built"] = (
+                proc.returncode == 0 and sections == [c for c in cli.COMMANDS if c != "help"]
+                and len(sections) == 25 and "flag table unavailable" not in proc.stdout)
+            drawing = drawing_branch(device, seqs, state["seed"] + 11)
+            out["drawing"] = drawing
+            if drawing["missing"]:
+                log(f"drawing: {', '.join(drawing['missing'])} not installed; the drawing "
+                    f"and graph are held on the CPU by tests/test_torch_viz*.py "
+                    f"(entry points raised ModuleNotFoundError: {drawing['raised']})")
+            else:
+                log(f"drawing: every entry point drew ({len(drawing['drawn'])})")
+            checks["drawing: each entry point drew or named its missing package"] = (
+                len(drawing["drawn"]) + len(drawing["raised"]) == len(DRAWING_NEEDS)
+                and drawing["files_non_empty"])
+        finally:
+            os.chdir(home)
+
+    out["checks"] = checks
+    log(json.dumps(out))
+    state["plots"] = out
+    failures = [name for name, ok in checks.items() if not ok]
+    if failures:
+        raise AssertionError(f"plots checks failed: {failures}")
+
+
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
-          phase_stats, phase_serve, phase_leiden, phase_workflow)
+          phase_stats, phase_serve, phase_leiden, phase_workflow, phase_plots)
 
 
 def run(device, scale, seed: int = 0) -> dict:

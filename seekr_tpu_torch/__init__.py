@@ -14,7 +14,11 @@ and the statistics chain, run with PyTorch on one CUDA card:
     (``stats``)
   * the warm-resident service ``SeekrService`` and its socket server and
     client (``serve``)
-  * Leiden communities with Gephi CSVs, ``kmer_leiden`` (``graph``)
+  * Leiden communities with Gephi CSVs and the network plot, ``kmer_leiden``,
+    and the legacy community graph ``Maker`` (``graph``)
+  * the plots: heatmap, dendrogram, count and mean/sd barplots, textplots, the
+    r-value distribution (``viz``; matplotlib and seaborn are imported when a
+    plot draws), and the clustering's pdist on the card (``ops.dist``)
   * the one-shot workflow ``run_workflow``, the sliding-window
     ``DomainPearson`` and the PWM ``CountsWeighter`` (``models``), and the
     streamed correction ``adj_pval_stream`` (``stats.stream_adj``)
@@ -22,7 +26,9 @@ and the statistics chain, run with PyTorch on one CUDA card:
     RNAs (``data``); logging, traces and the ``doctor`` report (``utils``)
   * the host C++ library -- FASTA parse and encode, CSV, sorts and FDR, the
     Leiden engine -- built by g++ at first use (``native``)
-  * the command line: ``python -m seekr_tpu_torch.cli <command>`` (``cli``)
+  * the command line: ``python -m seekr_tpu_torch.cli <command>`` (``cli``), and
+    the reference's module layout (``seekr_tpu_torch.kmer_counts``,
+    ``seekr_tpu_torch.pearson``, ...) as aliases of the modules above
 
 Entry points take ``device=None``, which means the first CUDA card; without one
 they raise unless ``device="cpu"`` is asked for (``utils.device``).  The package
@@ -45,6 +51,9 @@ _LAZY_EXPORTS = {
     "kmer_leiden": ("seekr_tpu_torch.graph.kmer_leiden", "kmer_leiden"),
     "Downloader": ("seekr_tpu_torch.data.gencode", "Downloader"),
     "filter_gencode": ("seekr_tpu_torch.data.filter_gencode", "filter_gencode"),
+    **{name: ("seekr_tpu_torch.viz", name) for name in (
+        "kmer_heatmap", "kmer_dendrogram", "kmer_count_barplot", "kmer_msd_barplot",
+        "kmer_comp_textplot", "kmer_indi_textplot")},
 }
 
 __all__ = [*_LAZY_EXPORTS, "__version__"]

@@ -1,28 +1,35 @@
 """The port's command line: ``python -m seekr_tpu_torch.cli <command> [args]``.
 
-Seventeen commands of ``seekr_tpu/cli.py``, with its flags and defaults and the
+The 26 commands of ``seekr_tpu/cli.py``, with its flags and defaults and the
 same file contracts (counts CSV/npy, mean/std npy, pearson npy/csv, fitres CSV,
 p-value CSV and npy, corpus snapshot npz, query CSV, Gephi nodes/edges CSVs,
-workflow artifacts, domain r-values and percentiles, PWM scores, fastas):
+workflow artifacts, domain r-values and percentiles, PWM scores, fastas, GML
+and node->Group CSV, figures):
 
   main path    kmer_counts, norm_vectors, pearson
-  statistics   find_dist, find_pval, adj_pval (-bi: the streamed correction)
+  statistics   find_dist (-pf: the fit plot), find_pval, adj_pval (-bi: the
+               streamed correction)
   workflow     pipeline
   models       domain_pearson, pwms
-  communities  kmer_leiden
+  communities  kmer_leiden (-pn: the network plot), graph
+  plots        kmer_heatmap, kmer_dendrogram, kmer_count_barplot,
+               kmer_msd_barplot, kmer_comp_textplot, kmer_indi_textplot,
+               visualize_distro
   serving      serve, query
   data         canonical_gencode, filter_gencode, gen_rand_rnas, download_gencode
-  health       doctor
+  health       doctor, help (every command's flag table)
 
 One flag is the port's own: ``--device`` (default: the first CUDA card; ``cpu``
-runs on the CPU).  Every command but the client ``query`` and ``doctor``
-resolves it first, so without a card and without ``--device cpu`` a command
-raises instead of moving to the CPU on its own; the host-only commands
-(adj_pval, pwms, the data tools) hold the same rule.  ``doctor`` probes the card
-``--device`` names in a subprocess.  Not in this port yet, and refused with an
-error that names the slice they come with: ``find_dist -pf`` and ``kmer_leiden
--pn`` (the plots), ``-dp``/``-kp`` above 1 and the multi-host flags (the device
-mesh).  A bare command prints its help; a bare ``doctor`` runs.
+runs on the CPU).  Every command but the client ``query``, ``doctor`` and
+``help`` resolves it first, so without a card and without ``--device cpu`` a
+command raises instead of moving to the CPU on its own; the host-only commands
+(adj_pval, pwms, graph, the textplots, visualize_distro, the data tools) hold
+the same rule.  ``doctor`` probes the card ``--device`` names in a subprocess.
+The plots and ``graph`` need matplotlib, seaborn and networkx, which are
+imported only when a command draws.  Not in this port yet, and refused with an
+error that names the slice they come with: ``-dp``/``-kp`` above 1 and the
+multi-host flags (the device mesh).  A bare command prints its help; a bare
+``doctor`` runs.
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ distributions ranked by goodness of fit.  Saves bkg_mean_{k}mers.npy /
 bkg_std_{k}mers.npy in the working directory.  Without -fm the raw r-values
 are saved instead: the empirical background for find_pval.
 
-  $ python -m seekr_tpu_torch.cli find_dist background.fa -k 4 -fm -o fitres
+  $ python -m seekr_tpu_torch.cli find_dist background.fa -k 4 -fm -o fitres -pf fits
   $ python -m seekr_tpu_torch.cli find_dist background.fa -k 4 -sbt -o bkg_rvalues
 """
 
@@ -109,10 +116,10 @@ KMER_LEIDEN_DOC = """
 Leiden community detection over fasta sequences: counts (normalized by the
 given mean/std vectors) and self-Pearson on the card, edges kept above
 -pco pearsoncutoff, then the Leiden algorithm (the host C++ engine; six
-partition types) and Gephi-ready nodes/edges CSVs (-cf).  The network plot
-(-pn) is not in this port yet.
+partition types), a spring-layout network plot (-pn, a pdf) and Gephi-ready
+nodes/edges CSVs (-cf).
 
-  $ python -m seekr_tpu_torch.cli kmer_leiden rnas.fa mean_4.npy std_4.npy 4 -cf net
+  $ python -m seekr_tpu_torch.cli kmer_leiden rnas.fa mean_4.npy std_4.npy 4 -pn net -cf net
   $ python -m seekr_tpu_torch.cli kmer_leiden rnas.fa mean_4.npy std_4.npy 4 -a CPMVertexPartition -r 1.5 -sd -pco 0.1 -cf net
 """
 
@@ -213,6 +220,79 @@ release of the species is looked up; downloads are gunzipped unless -z is set.
   $ python -m seekr_tpu_torch.cli download_gencode lncRNA -s mouse -r M25 -z -g
 """
 
+KMER_HEATMAP_DOC = """
+Heatmap of an r- or p-value matrix with a two/three-color gradient pivoting at
+'threshold' (hex colors accepted), optional hierarchical clustering of rows and
+columns with inset dendrograms (-cl; above 2^33 flops the pdist runs on the
+card), and a threshold tick on the colorbar.  The two positionals bound the
+color scale (e.g. 0 1 for p-values, -1 1 for r-values).
+
+  $ python -m seekr_tpu_torch.cli kmer_heatmap pvals.csv 0 1 -cl
+  $ python -m seekr_tpu_torch.cli kmer_heatmap pearson.csv -1 1 -th 0.13 -hf png -hd 300
+"""
+
+KMER_DENDROGRAM_DOC = """
+Dendrogram of the hierarchical clustering of a matrix's rows (-dd row) or
+columns (-dd column), with configurable distance metric and linkage method: a
+view of the clustering kmer_heatmap applies.
+
+  $ python -m seekr_tpu_torch.cli kmer_dendrogram pearson.csv -dd row
+  $ python -m seekr_tpu_torch.cli kmer_dendrogram pvals.csv -dd column -linkm ward -ph 10
+"""
+
+KMER_COUNT_BARPLOT_DOC = """
+Grouped barplot comparing the normalized k-mer counts of up to 10 sequences,
+showing the -tn k-mers whose counts deviate most from the column mean (summed
+|difference|, ascending or descending).  The counting runs on the card.
+
+  $ python -m seekr_tpu_torch.cli kmer_count_barplot rnas.fa mean_4.npy std_4.npy 4 -o barplot
+  $ python -m seekr_tpu_torch.cli kmer_count_barplot rnas.fa mean_4.npy std_4.npy 4 -tn 20 -sm descending -pf png
+"""
+
+KMER_MSD_BARPLOT_DOC = """
+Barplot of each k-mer's mean count +/- standard deviation across all sequences
+of a fasta, ordered by mean or sd, limited to the -tn most extreme k-mers.  The
+counting runs on the card.
+
+  $ python -m seekr_tpu_torch.cli kmer_msd_barplot rnas.fa mean_4.npy std_4.npy 4 -o msd
+  $ python -m seekr_tpu_torch.cli kmer_msd_barplot rnas.fa mean_4.npy std_4.npy 4 -tn 15 -ss sd
+"""
+
+KMER_COMP_TEXTPLOT_DOC = """
+Render two sequences character by character (wrapped at -wl columns) with up to
+10 motif words highlighted in color; overlapping motifs take the first word's
+color.
+
+  $ python -m seekr_tpu_torch.cli kmer_comp_textplot a.fa b.fa 'ATTA,AAAA' -o comp
+  $ python -m seekr_tpu_torch.cli kmer_comp_textplot a.fa b.fa 'GGGG' -wl 80 -cv '#d62728'
+"""
+
+KMER_INDI_TEXTPLOT_DOC = """
+The character-grid rendering of kmer_comp_textplot, one plot per sequence of
+the input fasta, saved into -op; each plot is named by the header up to the
+first '|'.
+
+  $ python -m seekr_tpu_torch.cli kmer_indi_textplot rnas.fa 'ATTA,AAAA' -op plots/
+"""
+
+GRAPH_DOC = """
+Community graph from an adjacency matrix (legacy seekr 1.x capability): threshold
+the matrix, build the weighted graph, partition its largest connected component
+(the host C++ Leiden engine), and write a Group-annotated GML plus a
+node-to-community CSV.
+
+  $ python -m seekr_tpu_torch.cli graph adj.npy -g graph.gml -c communities.csv -t 0.13
+"""
+
+VISUALIZE_DISTRO_DOC = """
+Histogram of a similarity matrix's r-value distribution (legacy seekr 1.x
+capability): the strict upper triangle of a symmetric matrix, every finite value
+otherwise, summary statistics in the title.  A large .npy is read in bounded
+memory.
+
+  $ python -m seekr_tpu_torch.cli visualize_distro pearson.npy -o distro -b 100
+"""
+
 DOCTOR_DOC = """
 Environment health report: python, torch (and its CUDA), numpy and scipy; the
 card's name and power limit; the nvcc build of the kernels and one launch of
@@ -225,12 +305,38 @@ Exit code 0 when no check fails, 1 otherwise.
 """
 
 
+class _CollectParser(Exception):
+    """Carrier for parser harvesting (see ``_collect_parser``)."""
+
+    def __init__(self, parser):
+        self.parser = parser
+
+
+_COLLECT = object()  # sentinel argv: harvest the parser instead of parsing
+
+
 def _parse_args_or_exit(parser, argv=None):
+    if argv is _COLLECT:
+        raise _CollectParser(parser)
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         parser.print_help()
         sys.exit(0)
     return parser.parse_args(argv)
+
+
+def _collect_parser(console_fn) -> argparse.ArgumentParser:
+    """A command's fully built parser, without running the command.
+
+    Every command funnels through ``_parse_args_or_exit``, so the ``_COLLECT``
+    sentinel as argv stops it at the parse with its parser in hand: ``help``
+    prints the real parsers, with no second copy of any flag.
+    """
+    try:
+        console_fn(argv=_COLLECT)
+    except _CollectParser as collected:
+        return collected.parser
+    raise RuntimeError("command did not route through _parse_args_or_exit")
 
 
 def _parser(doc) -> argparse.ArgumentParser:
@@ -410,8 +516,7 @@ def console_find_dist(argv=None):
     parser.add_argument("-pb", "--progress_bar", action="store_true",
                         help="show a progress bar while fitting.")
     parser.add_argument("-pf", "--plotfit", default=None,
-                        help="path to save the fit grid plot (not in this port "
-                             "yet: the viz slice).")
+                        help="path to save the fit grid plot (pdf appended).")
     parser.add_argument("-o", "--outputname", default=None,
                         help="path to save results csv (csv appended).")
     parser.add_argument("-nj", "--n_jobs", default=1,
@@ -428,8 +533,6 @@ def console_find_dist(argv=None):
                              "this port yet).")
     args = _parse_args_or_exit(parser, argv)
     _refuse_mesh(parser, args, "data_parallel", "kmer_parallel")
-    if args.plotfit:
-        parser.error("-pf/--plotfit: the fit plot comes with the port's viz slice")
 
     from seekr_tpu_torch.stats.find_dist import find_dist
 
@@ -437,7 +540,7 @@ def console_find_dist(argv=None):
     models = args.models if args.models in ("common10", "all") else args.models.split(",")
     find_dist(args.fasta, int(args.kmer), args.log2, models,
               args.subsetting, int(args.subset_size), args.fit_model,
-              args.statsmethod, args.progress_bar, None, args.outputname,
+              args.statsmethod, args.progress_bar, args.plotfit, args.outputname,
               n_jobs=int(args.n_jobs), fit_timeout=args.fit_timeout, device=device)
 
 
@@ -574,7 +677,7 @@ def console_kmer_leiden(argv=None):
     parser.add_argument("-lfs", "--labelfontsize", default=12,
                         help="node label font size.")
     parser.add_argument("-pn", "--plotname", default=None,
-                        help="plot output path (not in this port yet: the viz slice).")
+                        help="plot output path (pdf appended).")
     parser.add_argument("-cf", "--csvfile", default=None,
                         help="Gephi nodes/edges csv prefix.")
     parser.add_argument("--stream", default=None, choices=["auto", "on", "off"],
@@ -587,8 +690,6 @@ def console_kmer_leiden(argv=None):
                              "port yet).")
     args = _parse_args_or_exit(parser, argv)
     _refuse_mesh(parser, args, "data_parallel")
-    if args.plotname:
-        parser.error("-pn/--plotname: the network plot comes with the port's viz slice")
 
     from seekr_tpu_torch.graph import kmer_leiden
 
@@ -596,7 +697,7 @@ def console_kmer_leiden(argv=None):
     kmer_leiden(args.fasta, args.mean_path, args.std_path, int(args.kmer), args.algo,
                 float(args.rs), float(args.pearsoncutoff), args.setseed,
                 args.edgecolormethod, float(args.edgethreshold), int(args.labelfontsize),
-                None, args.csvfile, stream=stream, device=_device(args))
+                args.plotname, args.csvfile, stream=stream, device=_device(args))
 
 
 # -- serve / query -----------------------------------------------------------
@@ -983,6 +1084,268 @@ def console_download_gencode(argv=None):
                              args.fasta_path, args.gtf_path, args.zip)
 
 
+# -- plots -------------------------------------------------------------------
+
+def console_kmer_heatmap(argv=None):
+    parser = _parser(KMER_HEATMAP_DOC)
+    parser.add_argument("df_file", help="csv matrix with row/column names.")
+    parser.add_argument("datamin", help="minimum possible data value.")
+    parser.add_argument("datamax", help="maximum possible data value.")
+    parser.add_argument("-th", "--thresh_value", default=0.05,
+                        help="middle-color pivot for 3-color palettes.")
+    parser.add_argument("-cr", "--color_range_str", default="#1b7837,#ffffff,#c51b7d",
+                        help="comma-separated 2 or 3 hex colors.")
+    parser.add_argument("-cl", "--cluster", action="store_true",
+                        help="cluster and draw dendrograms on rows+columns.")
+    parser.add_argument("-distm", "--distmetric", default="correlation",
+                        help="distance metric for clustering.")
+    parser.add_argument("-linkm", "--linkmethod", default="complete",
+                        help="linkage method for clustering.")
+    parser.add_argument("-wratio", "--hmapw_ratio", default=0.3,
+                        help="heatmap width ratio factor.")
+    parser.add_argument("-hratio", "--hmaph_ratio", default=0.3,
+                        help="heatmap height ratio factor.")
+    parser.add_argument("-xts", "--x_tick_size", default=16, help="column label font size.")
+    parser.add_argument("-yts", "--y_tick_size", default=16, help="row label font size.")
+    parser.add_argument("-cfs", "--cbar_font_size", default=16,
+                        help="colorbar tick font size.")
+    parser.add_argument("-o", "--outputname", default="test_kmer_heatmap",
+                        help="output path/name.")
+    parser.add_argument("-hf", "--hformat", default="pdf", help="output format.")
+    parser.add_argument("-hd", "--hdpi", default=300, help="output dpi.")
+    args = _parse_args_or_exit(parser, argv)
+    device = _device(args)
+
+    from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+    from seekr_tpu_torch.viz import kmer_heatmap
+
+    kmer_heatmap(read_labeled_csv(args.df_file), int(args.datamin), int(args.datamax),
+                 float(args.thresh_value), args.color_range_str.split(","),
+                 args.cluster, args.distmetric, args.linkmethod,
+                 float(args.hmapw_ratio), float(args.hmaph_ratio),
+                 int(args.x_tick_size), int(args.y_tick_size),
+                 int(args.cbar_font_size), args.outputname, args.hformat,
+                 int(args.hdpi), device=device)
+
+
+def console_kmer_dendrogram(argv=None):
+    parser = _parser(KMER_DENDROGRAM_DOC)
+    parser.add_argument("df_file", help="csv matrix with row/column names.")
+    parser.add_argument("-dd", "--dendro_direct", default="row",
+                        choices=["row", "column"], help="clustering direction.")
+    parser.add_argument("-distm", "--distmetric", default="correlation",
+                        help="distance metric.")
+    parser.add_argument("-linkm", "--linkmethod", default="complete",
+                        help="linkage method.")
+    parser.add_argument("-ph", "--plot_ht", default=8, help="plot height.")
+    parser.add_argument("-wratio", "--wd_ratio", default=0.5, help="width ratio factor.")
+    parser.add_argument("-lfs", "--leaf_font_size", default=16,
+                        help="leaf label font size.")
+    parser.add_argument("-o", "--outputname", default="test_kmer_dendrogram",
+                        help="output path/name.")
+    parser.add_argument("-pf", "--pformat", default="pdf", help="output format.")
+    parser.add_argument("-d", "--pdpi", default=300, help="output dpi.")
+    args = _parse_args_or_exit(parser, argv)
+    device = _device(args)
+
+    from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+    from seekr_tpu_torch.viz import kmer_dendrogram
+
+    kmer_dendrogram(read_labeled_csv(args.df_file), args.dendro_direct, args.distmetric,
+                    args.linkmethod, int(args.plot_ht), float(args.wd_ratio),
+                    int(args.leaf_font_size), args.outputname, args.pformat,
+                    int(args.pdpi), device=device)
+
+
+def _barplot_parser(doc, fasta_help, sort_flags):
+    """The positionals, sort flags and figure flags the two barplots share."""
+    parser = _parser(doc)
+    parser.add_argument("fasta", help=fasta_help)
+    parser.add_argument("mean_path", help="normalization mean vector (.npy).")
+    parser.add_argument("std_path", help="normalization std vector (.npy).")
+    parser.add_argument("kmer", help="k-mer length (must match the vectors).")
+    parser.add_argument("-l", "--log2", default="Log2.post", choices=LOG2_CHOICES,
+                        help="decided if and when to log transform counts")
+    sort_flags(parser)
+    parser.add_argument("-tn", "--topkmernumber", default=10,
+                        help="number of k-mer words to plot.")
+    parser.add_argument("-xls", "--xlabelsize", default=20, help="x axis label font size.")
+    parser.add_argument("-yls", "--ylabelsize", default=20, help="y axis label font size.")
+    parser.add_argument("-xts", "--xticksize", default=20, help="x tick label font size.")
+    parser.add_argument("-yts", "--yticksize", default=20, help="y tick label font size.")
+    return parser
+
+
+def console_kmer_count_barplot(argv=None):
+    def sort_flags(parser):
+        parser.add_argument("-sm", "--sortmethod", default="ascending",
+                            choices=["ascending", "descending"],
+                            help="sort order of summed |diff from column mean|.")
+
+    parser = _barplot_parser(KMER_COUNT_BARPLOT_DOC,
+                             "fasta file (first 10 sequences used).", sort_flags)
+    parser.add_argument("-ls", "--legendsize", default=12, help="legend font size.")
+    parser.add_argument("-o", "--outputname", default="test_kmer_count_barplot",
+                        help="output path/name.")
+    parser.add_argument("-pf", "--pformat", default="pdf", help="output format.")
+    parser.add_argument("-d", "--pdpi", default=300, help="output dpi.")
+    args = _parse_args_or_exit(parser, argv)
+    device = _device(args)
+
+    from seekr_tpu_torch.viz import kmer_count_barplot
+
+    kmer_count_barplot(args.fasta, args.mean_path, args.std_path, int(args.kmer),
+                       args.log2, args.sortmethod, int(args.topkmernumber),
+                       int(args.xlabelsize), int(args.ylabelsize), int(args.xticksize),
+                       int(args.yticksize), int(args.legendsize), args.outputname,
+                       args.pformat, int(args.pdpi), device=device)
+
+
+def console_kmer_msd_barplot(argv=None):
+    def sort_flags(parser):
+        parser.add_argument("-ss", "--sortstat", default="mean", choices=["mean", "sd"],
+                            help="sort statistic.")
+        parser.add_argument("-sm", "--sortmethod", default="descending",
+                            choices=["ascending", "descending"], help="sort order.")
+
+    parser = _barplot_parser(KMER_MSD_BARPLOT_DOC, "fasta file with unique headers.",
+                             sort_flags)
+    parser.add_argument("-o", "--outputname", default="test_kmer_msd_barplot",
+                        help="output path/name.")
+    parser.add_argument("-pf", "--pformat", default="pdf", help="output format.")
+    parser.add_argument("-d", "--pdpi", default=300, help="output dpi.")
+    args = _parse_args_or_exit(parser, argv)
+    device = _device(args)
+
+    from seekr_tpu_torch.viz import kmer_msd_barplot
+
+    kmer_msd_barplot(args.fasta, args.mean_path, args.std_path, int(args.kmer), args.log2,
+                     args.sortstat, args.sortmethod, int(args.topkmernumber),
+                     int(args.xlabelsize), int(args.ylabelsize), int(args.xticksize),
+                     int(args.yticksize), args.outputname, args.pformat, int(args.pdpi),
+                     device=device)
+
+
+def _textplot_flags(parser, line_spacing_help):
+    """The word, color and layout flags the two textplots share."""
+    parser.add_argument("words_str",
+                        help="comma-separated words, e.g. 'ATTA,AAAA,ACTC' (max 10).")
+    parser.add_argument("-cv", "--color_vec_str", default="default",
+                        help="comma-separated hex colors matching words, or 'default'.")
+    parser.add_argument("-wl", "--wraplen", default=60, help="characters per line.")
+    parser.add_argument("-cs", "--char_spacing", default=1.0,
+                        help="space between characters.")
+    parser.add_argument("-ls", "--line_spacing", default=0.5, help=line_spacing_help)
+    parser.add_argument("-sfs", "--seqfontsize", default=28,
+                        help="sequence character font size.")
+    parser.add_argument("-nfs", "--numfontsize", default=18,
+                        help="position number font size.")
+    parser.add_argument("-cbh", "--colorblockh", default=0.5,
+                        help="highlight block height.")
+
+
+def _words_colors(args):
+    words = args.words_str.split(",")
+    colors = ("default" if args.color_vec_str == "default"
+              else args.color_vec_str.split(","))
+    return words, colors
+
+
+def console_kmer_comp_textplot(argv=None):
+    parser = _parser(KMER_COMP_TEXTPLOT_DOC)
+    parser.add_argument("seq1file", help="first fasta (first sequence used).")
+    parser.add_argument("seq2file", help="second fasta (first sequence used).")
+    _textplot_flags(parser, "space between seq1, seq2 and ruler lines.")
+    parser.add_argument("-o", "--outputname", default="comp_textplot",
+                        help="output path/name.")
+    parser.add_argument("-pf", "--plotformat", default="pdf", help="output format.")
+    parser.add_argument("-d", "--plotdpi", default=300, help="output dpi.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.viz import kmer_comp_textplot
+
+    words, colors = _words_colors(args)
+    kmer_comp_textplot(args.seq1file, args.seq2file, words, colors, int(args.wraplen),
+                       float(args.char_spacing), float(args.line_spacing),
+                       int(args.seqfontsize), int(args.numfontsize),
+                       float(args.colorblockh), args.outputname, args.plotformat,
+                       int(args.plotdpi))
+
+
+def console_kmer_indi_textplot(argv=None):
+    parser = _parser(KMER_INDI_TEXTPLOT_DOC)
+    parser.add_argument("seqfile", help="input fasta file.")
+    _textplot_flags(parser, "space between sequence and ruler lines.")
+    parser.add_argument("-op", "--outputpath", default="",
+                        help="output directory; plot names come from headers.")
+    parser.add_argument("-pf", "--plotformat", default="pdf", help="output format.")
+    parser.add_argument("-d", "--plotdpi", default=300, help="output dpi.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.viz import kmer_indi_textplot
+
+    words, colors = _words_colors(args)
+    kmer_indi_textplot(args.seqfile, words, colors, int(args.wraplen),
+                       float(args.char_spacing), float(args.line_spacing),
+                       int(args.seqfontsize), int(args.numfontsize),
+                       float(args.colorblockh), args.outputpath, args.plotformat,
+                       int(args.plotdpi))
+
+
+def console_visualize_distro(argv=None):
+    parser = _parser(VISUALIZE_DISTRO_DOC)
+    parser.add_argument("adj", help="Similarity matrix (.npy or labeled CSV), e.g. a "
+                                    "pearson output.")
+    parser.add_argument("-o", "--outputname", default="distro",
+                        help="Output path without extension.")
+    parser.add_argument("-b", "--bins", default=100, help="Histogram bin count.")
+    parser.add_argument("-pf", "--pformat", default="pdf",
+                        help="Figure format (matplotlib-supported).")
+    parser.add_argument("-d", "--pdpi", default=300, help="Figure resolution in dpi.")
+    parser.add_argument("--symmetric", default="auto", choices=["auto", "yes", "no"],
+                        help="streamed .npy mode: skip the transpose detection (a full "
+                             "extra read of a multi-GB artifact) when you already know.")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.viz import visualize_distro
+
+    visualize_distro(args.adj, outputname=args.outputname, bins=int(args.bins),
+                     pformat=args.pformat, pdpi=int(args.pdpi),
+                     symmetric={"auto": None, "yes": True, "no": False}[args.symmetric])
+
+
+# -- graph -------------------------------------------------------------------
+
+def console_graph(argv=None):
+    parser = _parser(GRAPH_DOC)
+    parser.add_argument("adj", help="Adjacency matrix (.npy or labeled CSV), e.g. a "
+                                    "pearson output.")
+    parser.add_argument("-g", "--gml_path", default="graph.gml",
+                        help="Path for the Group-annotated GML file.")
+    parser.add_argument("-c", "--csv_path", default="graph.csv",
+                        help="Path for the node-to-community CSV.")
+    parser.add_argument("-t", "--threshold", default=0, type=float,
+                        help="Zero adjacency entries below this value.")
+    parser.add_argument("-m", "--gamma", default=1.0, type=float,
+                        help="Resolution parameter of the partition.")
+    parser.add_argument("-n", "--n_comms", default=5, type=int,
+                        help="Cap on the number of distinct community ids.")
+    parser.add_argument("-s", "--seed", default=None,
+                        help="Partition RNG seed (default: unseeded).")
+    args = _parse_args_or_exit(parser, argv)
+    _device(args)
+
+    from seekr_tpu_torch.graph.maker import Maker
+
+    Maker(args.adj, gml_path=args.gml_path, csv_path=args.csv_path,
+          threshold=float(args.threshold), gamma=float(args.gamma),
+          n_comms=int(args.n_comms),
+          seed=None if args.seed is None else int(args.seed)).make_gml_csv_files()
+
+
 # -- doctor ------------------------------------------------------------------
 
 def console_doctor(argv=None):
@@ -995,7 +1358,7 @@ def console_doctor(argv=None):
     parser.add_argument("--device", default="cuda:0",
                         help="the CUDA card to probe, in a subprocess.")
     argv = sys.argv[1:] if argv is None else argv
-    args = parser.parse_args(argv)  # a bare doctor runs every check
+    args = _parse_args_or_exit(parser, argv or ["--device", "cuda:0"])  # a bare doctor runs
 
     from seekr_tpu_torch.utils.doctor import run_doctor
 
@@ -1004,26 +1367,73 @@ def console_doctor(argv=None):
     sys.exit(0 if healthy else 1)
 
 
+# -- help ------------------------------------------------------------------
+
+def console_seekr_help(argv=None):
+    """The full manual: every command's harvested parser, in ``COMMANDS`` order.
+
+    Each section is the command's own help (its doc and every positional and
+    flag with its default), so the manual cannot drift from the real parsers.
+    Building the parsers imports no plotting library.
+    """
+    from seekr_tpu_torch.__version__ import __version__
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-v", "--version", action="store_true",
+                        help="Print current version and exit.")
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.version:
+        print(__version__)
+        return
+    print(f"Welcome to seekr_tpu_torch! ({__version__})\n"
+          "The PyTorch/CUDA port of seekr_tpu, with the seekr command set.\n"
+          "Below is the full manual: every command with its complete argument and "
+          "default table.\n")
+    for cmd, fn in COMMANDS.items():
+        if fn is console_seekr_help:
+            continue
+        try:
+            parser = _collect_parser(fn)
+        except Exception as err:  # one broken command must not take down the manual
+            print(f"{'=' * 25}\n{cmd}\n{'=' * 25}\n"
+                  f"  (flag table unavailable here: {type(err).__name__}: {err};\n"
+                  f"   run `python -m seekr_tpu_torch.cli {cmd} --help` for details)\n")
+            continue
+        parser.prog = f"python -m seekr_tpu_torch.cli {cmd}"
+        print(f"{'=' * 25}\n{cmd}\n{'=' * 25}\n{parser.format_help()}")
+    print("Each section above is identical to running the command with no "
+          "parameters (or --help).")
+
+
 # -- module dispatcher (python -m seekr_tpu_torch.cli <command> ...) -----------
 
 COMMANDS = {
+    "download_gencode": console_download_gencode,
+    "filter_gencode": console_filter_gencode,
     "kmer_counts": console_kmer_counts,
-    "norm_vectors": console_norm_vectors,
     "pearson": console_pearson,
+    "norm_vectors": console_norm_vectors,
     "find_dist": console_find_dist,
     "find_pval": console_find_pval,
     "adj_pval": console_adj_pval,
+    "kmer_heatmap": console_kmer_heatmap,
+    "kmer_dendrogram": console_kmer_dendrogram,
     "kmer_leiden": console_kmer_leiden,
+    "kmer_count_barplot": console_kmer_count_barplot,
+    "kmer_msd_barplot": console_kmer_msd_barplot,
+    "kmer_comp_textplot": console_kmer_comp_textplot,
+    "kmer_indi_textplot": console_kmer_indi_textplot,
+    "gen_rand_rnas": console_gen_rand_rnas,
+    "pwms": console_pwms,
+    "graph": console_graph,
+    "domain_pearson": console_domain_pearson,
+    "visualize_distro": console_visualize_distro,
+    "canonical_gencode": console_canonical_gencode,
+    "pipeline": console_pipeline,
     "serve": console_serve,
     "query": console_query,
-    "pipeline": console_pipeline,
-    "domain_pearson": console_domain_pearson,
-    "pwms": console_pwms,
-    "canonical_gencode": console_canonical_gencode,
-    "filter_gencode": console_filter_gencode,
-    "gen_rand_rnas": console_gen_rand_rnas,
-    "download_gencode": console_download_gencode,
     "doctor": console_doctor,
+    "help": console_seekr_help,
 }
 
 

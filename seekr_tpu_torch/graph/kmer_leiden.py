@@ -6,11 +6,10 @@ the cutoff and the diagonal zeroed, an undirected weighted graph, a Leiden
 partition by the host C++ engine (``native.leiden``: the six partition types of
 the reference, with its resolution and seed rules, kmer_leiden.py:115-146), and
 the Gephi nodes/edges CSVs, written without pandas in the bytes seekr_tpu's
-``to_csv`` writes.
+``to_csv`` writes, and the spring-layout network plot (``plot_network``;
+matplotlib and networkx are imported when it draws).
 
-Not in this port yet: the spring-layout plot (``plotname``, which needs
-matplotlib and networkx: the viz slice) and ``data_parallel`` > 1 (the multi-GPU
-slice); both raise.
+Not in this port yet: ``data_parallel`` > 1 (the multi-GPU slice), which raises.
 """
 
 from __future__ import annotations
@@ -36,8 +35,6 @@ _RESOLUTION_ALGOS = {
     "RBERVertexPartition",
     "CPMVertexPartition",
 }
-
-VIZ_SLICE = "the port's viz slice (plot_network needs matplotlib and networkx)"
 
 
 def similarity_graph(inputfile, mean, std, k, pearsoncutoff=0, counter=None,
@@ -132,6 +129,67 @@ def sparse_similarity_edges(counts, pearsoncutoff=0, block_rows: int = 2048,
     return tiles.result()
 
 
+def _edge_style(graph: LabeledMatrix, edgecolormethod, edgethreshold):
+    """Edge colors and widths of the upper-triangle positive weights, row by row.
+
+    'gradient': weights min-max mapped to [0.1, 1] grey scale + width 1..4;
+    'threshold': black/4pt above the threshold else grey/1pt
+    (reference kmer_leiden.py:154-241).
+    """
+    row, col = np.triu_indices(graph.shape[0], k=1)
+    weights = graph.values[row, col]
+    weights = weights[weights > 0]
+    if edgecolormethod == "threshold":
+        colors = ["black" if w > edgethreshold else "grey" for w in weights]
+        widths = [4 if w > edgethreshold else 1 for w in weights]
+        return colors, widths
+    if edgecolormethod != "gradient":
+        print("edgecolormethod must be either 'gradient' or 'threshold', "
+              "use default 'gradient' now")
+    if not len(weights):  # no pair cleared the cutoff: nothing to style
+        return [], []
+    span = weights.max() - weights.min()
+    normalized = (weights - weights.min()) / (span if span > 0 else 1.0)
+    mapped = 0.1 + 0.9 * normalized
+    colors = [(1 - w, 1 - w, 1 - w) for w in mapped]
+    widths = [1 + 3 * w for w in mapped]
+    return colors, widths
+
+
+def plot_network(graph: LabeledMatrix, membership, plotname, edgecolormethod="gradient",
+                 edgethreshold=0.1, labelfontsize=12):
+    """Spring-layout community plot saved as ``{plotname}.pdf``.
+
+    The graph holds the positive weights only, the edge set the communities
+    were found on (seekr_tpu's documented deviation: the reference plots every
+    nonzero entry, which desynchronizes the styling arrays from the edges under
+    a negative cutoff).  ``from_numpy_array`` adds the edges row by row over the
+    upper triangle, the order of ``_edge_style``'s arrays, as seekr_tpu's
+    ``from_pandas_adjacency`` does.
+    """
+    from seekr_tpu_torch.viz.style import ensure_headless_backend
+
+    ensure_headless_backend()
+    import matplotlib.pyplot as plt
+    import networkx as nx
+
+    vals = graph.values
+    G = nx.relabel_nodes(nx.from_numpy_array(np.where(vals > 0, vals, 0.0)),
+                         dict(enumerate(graph.columns)))
+    edge_colors, edge_widths = _edge_style(graph, edgecolormethod, edgethreshold)
+    community_colors = plt.cm.rainbow(np.linspace(0, 1, int(membership.max()) + 1))
+    node_colors = [community_colors[c] for c in membership]
+    pos = nx.spring_layout(G, weight="weight")
+    plt.figure(figsize=(15, 15))
+    plt.gca().axis("off")
+    nx.draw_networkx_nodes(G, pos, node_color=node_colors, node_size=500)
+    nx.draw_networkx_edges(G, pos, edge_color=edge_colors, width=edge_widths)
+    nx.draw_networkx_labels(G, pos, font_size=labelfontsize, font_family="sans-serif")
+    plt.tight_layout()
+    plt.savefig(f"{plotname}.pdf")
+    plt.close()
+
+
 def _write_rows(path, header: str, columns) -> None:
     """A CSV of already-formatted cell columns (equal-length lists of str)."""
     with open(path, "w", newline="") as fh:
@@ -194,17 +252,15 @@ def kmer_leiden(inputfile, mean, std, k, algo="RBERVertexPartition", rs=1.0,
     returns the int32 membership (the reference returns None), or None when
     the norm vectors do not fit ``k``.  Above ``LEIDEN_STREAM_CELL_THRESHOLD``
     similarity cells, or with ``stream=True``, the thresholded edge set is
-    extracted tile by tile (``sparse_similarity_edges``) and the Gephi edges
-    file holds the detected edges.  Streamed weights may differ from the dense
-    ones by GEMM-tiling ulps, so a pair within an ulp of the cutoff can flip.
-    ``edgecolormethod``, ``edgethreshold`` and ``labelfontsize`` style the
-    plot, which ``plotname`` asks for and which raises until the viz slice.
+    extracted tile by tile (``sparse_similarity_edges``), the Gephi edges
+    file holds the detected edges and the plot is skipped with a message.
+    Streamed weights may differ from the dense ones by GEMM-tiling ulps, so a
+    pair within an ulp of the cutoff can flip.  ``plotname`` asks for the
+    network plot ``{plotname}.pdf``, which ``edgecolormethod``,
+    ``edgethreshold`` and ``labelfontsize`` style.
     """
     from seekr_tpu_torch.viz.style import check_norm_compat
 
-    if plotname:
-        raise NotImplementedError(
-            f"kmer_leiden(plotname=...): the network plot comes with {VIZ_SLICE}")
     if (data_parallel or 1) > 1:
         raise NotImplementedError(
             "kmer_leiden(data_parallel > 1): the device mesh comes with the port's "
@@ -223,12 +279,20 @@ def kmer_leiden(inputfile, mean, std, k, algo="RBERVertexPartition", rs=1.0,
         src, dst, w = sparse_similarity_edges(counter.get_counts_device(), pearsoncutoff,
                                               device=counter.device)
         membership = _run_leiden(src, dst, w, m, algo, rs, setseed)
+        if plotname:
+            print(f"kmer_leiden: streamed mode at m={m} skips the "
+                  f"spring-layout plot ({plotname}.pdf not written) — "
+                  "it needs the dense similarity matrix; use the Gephi "
+                  "CSVs (csvfile=) for large-graph rendering.")
         if csvfile:
             export_gephi_csv_edges(names, membership, src, dst, w, csvfile)
         return membership
 
     graph = similarity_graph(inputfile, mean, std, k, pearsoncutoff, counter=counter)
     membership = leiden_membership(graph, algo=algo, rs=rs, setseed=setseed)
+    if plotname:
+        plot_network(graph, membership, plotname, edgecolormethod=edgecolormethod,
+                     edgethreshold=edgethreshold, labelfontsize=labelfontsize)
     if csvfile:
         export_gephi_csv(graph, membership, csvfile)
     return membership

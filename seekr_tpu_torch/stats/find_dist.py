@@ -10,8 +10,9 @@ pairs with a device gather-dot (``sample_triu_pairs``).  The scipy MLE fits
 stay on the host: they iterate over up to ~100 distributions on a <=100k-value
 vector.
 
-Not in this port yet: the fit plot (``plotfit``, the viz slice) and the mesh
-arguments (``data_parallel``/``kmer_parallel`` > 1, the multi-GPU slice); both
+``plot_fits`` draws the fitted PDFs over the data's histogram (``plotfit``;
+matplotlib is imported when it draws).  Not in this port yet: the mesh
+arguments (``data_parallel``/``kmer_parallel`` > 1, the multi-GPU slice), which
 raise instead of being ignored.  Documented differences from the reference
 are seekr_tpu's: ``inputseq='default'`` raises when the bundled mouse vM25
 fasta is absent (it is absent upstream too), and fits can run in host
@@ -288,6 +289,37 @@ def fit_distributions(data, names, statsmethod="ks", progress_bar=False,
     return results
 
 
+def plot_fits(data, results, plotfit):
+    """Grid plot of fitted PDFs (red dashed) over data histogram (blue)."""
+    if not results:
+        print("No distributions were successfully fitted; skipping the "
+              "fit plot.")
+        return
+    from seekr_tpu_torch.viz.style import ensure_headless_backend
+
+    ensure_headless_backend()
+    import matplotlib.pyplot as plt
+    from scipy import stats
+
+    n = len(results)
+    n_cols = min(5, n)
+    n_rows = n // n_cols + (n % n_cols > 0)
+    fig, axes = plt.subplots(n_rows, n_cols, figsize=(n_cols * 3, n_rows * 3))
+    axes = np.atleast_1d(axes).ravel()
+    x = np.linspace(np.min(data), np.max(data), 1000)
+    for idx, (ax, (name, D, params)) in enumerate(zip(axes, results)):
+        distribution = getattr(stats, name)
+        pdf = distribution.pdf(x, *params)
+        ax.hist(data, bins=100, density=True, alpha=0.6, color="skyblue")
+        ax.plot(x, pdf, "r--", linewidth=2)
+        ax.set_title(f"{idx + 1}: {name} (Dev={D:.3f})")
+    for i in range(len(results), len(axes)):
+        fig.delaxes(axes[i])
+    plt.tight_layout()
+    plt.savefig(f"{plotfit}.pdf", dpi=300)
+    plt.close(fig)
+
+
 def write_fit_results(path, results) -> None:
     """The bytes of ``pd.DataFrame(results, columns=RESULT_COLUMNS)
     .to_csv(path, index=False)``: the D column as a float64 column (shortest
@@ -311,17 +343,14 @@ def find_dist(inputseq="default", k_mer=4, log2="Log2.post", models="common10",
 
     seekr_tpu's ``find_dist`` (seekr/find_dist.py:82): a list of
     (name, D, params) tuples when ``fit_model`` else the raw r-value array,
-    and the optional CSV artifact.  ``n_jobs``/``fit_timeout`` bound the host
-    fitting loop; above ``exact_subsample_max_pool`` the subsample comes from
-    index sampling + a device gather-dot of only the sampled pairs.
-    ``device``: where counting and Pearson run (``None`` = the first CUDA card).
-    ``plotfit`` and ``data_parallel``/``kmer_parallel`` > 1 raise: the fit plot
-    and the mesh come with later slices of the port.
+    the optional grid plot ``{plotfit}.pdf`` and the optional CSV artifact.
+    ``n_jobs``/``fit_timeout`` bound the host fitting loop; above
+    ``exact_subsample_max_pool`` the subsample comes from index sampling + a
+    device gather-dot of only the sampled pairs.  ``device``: where counting
+    and Pearson run (``None`` = the first CUDA card).
+    ``data_parallel``/``kmer_parallel`` > 1 raise: the mesh comes with a later
+    slice of the port.
     """
-    if plotfit:
-        raise NotImplementedError(
-            "find_dist(plotfit=...): the fit plot comes with the port's viz "
-            "slice; use seekr_tpu.stats.find_dist for it meanwhile")
     if (data_parallel or 1) > 1 or (kmer_parallel or 1) > 1:
         raise NotImplementedError(
             "find_dist(data_parallel/kmer_parallel > 1): the device mesh comes "
@@ -362,6 +391,10 @@ def find_dist(inputseq="default", k_mer=4, log2="Log2.post", models="common10",
                       "use the actual data size instead")
 
     if not fit_model:
+        if plotfit:
+            print("No plot will be produced as fit_model is set to False, "
+                  "please set fit_model=True to plot the fitted distributions "
+                  "vs the actual data")
         if outputname:
             np.savetxt(f"{outputname}.csv", sim_triu, delimiter=",")
         return sim_triu
@@ -373,6 +406,8 @@ def find_dist(inputseq="default", k_mer=4, log2="Log2.post", models="common10",
     results = fit_distributions(sim_triu, names, statsmethod=statsmethod,
                                 progress_bar=progress_bar, n_jobs=n_jobs,
                                 fit_timeout=fit_timeout)
+    if plotfit:
+        plot_fits(sim_triu, results, plotfit)
     if outputname:
         write_fit_results(f"{outputname}.csv", results)
     return results

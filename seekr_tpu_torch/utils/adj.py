@@ -1,6 +1,6 @@
 """Upper-triangle helpers for square similarity and p-value matrices.
 
-Port of ``seekr_tpu/utils/adj.py:16-95``.  A float64 C-contiguous matrix of
+Port of ``seekr_tpu/utils/adj.py``.  A float64 C-contiguous matrix of
 ``_NATIVE_MIN_M`` rows or more is gathered and filled by the host C++ library
 (``native.triu_values_f64``/``triu_fill_f64``), bitwise the numpy path's result;
 ``SEEKR_TPU_HOST_SORT`` overrides the size gate as in ``stats.multitest``.
@@ -87,3 +87,21 @@ def triu_index_to_ij(m: int, t) -> tuple:
     i = np.searchsorted(offsets, t, side="right") - 1
     j = t - offsets[i] + i + 1
     return i, j
+
+
+def get_adj(adj):
+    """Coerce an adjacency input (ndarray, labeled matrix or path) for graph use.
+
+    A path ending in ``.npy`` loads as a bare ndarray; any other path is read
+    as a labeled CSV (first column = index) into a float64
+    ``io.fast_csv.LabeledMatrix``, where seekr_tpu reads a DataFrame.
+    In-memory inputs are returned as they are (no copy).
+    """
+    if isinstance(adj, str) or hasattr(adj, "__fspath__"):
+        path = str(adj)
+        if path.endswith(".npy"):
+            return np.load(path)
+        from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+
+        return read_labeled_csv(path)
+    return adj

@@ -1,8 +1,7 @@
 """Notebook-aware progress bars (the reference's seekr/my_tqdm.py:17-32).
 
-Port of ``my_tqdm`` of ``seekr_tpu/utils/progress.py`` (the port has no caller
-of ``my_trange``).  tqdm is imported only when a bar is asked for: the port
-does not need it otherwise.
+Port of ``seekr_tpu/utils/progress.py``.  tqdm is imported only when a bar is
+asked for: the port does not need it otherwise.
 """
 
 import sys
@@ -25,3 +24,12 @@ def my_tqdm():
 
     return tqdm
 
+
+def my_trange():
+    if _is_kernel():
+        from tqdm.notebook import trange as tnrange
+
+        return tnrange
+    from tqdm import trange
+
+    return trange

@@ -54,6 +54,12 @@ def test_phases_rehearse_on_cpu():
     assert len(wf["adj_pval_bi"]) == 6 and wf["adj_pval_bi"][0]["stream_symmetric"]
     assert wf["adj_pval_bi"][-1]["max_bucket_pairs"] == chip_smoke.TINY.adj_tie_cap
     assert wf["doctor_rc"] == 0 and wf["domain_windows"] > chip_smoke.TINY.dom_targets
+    # phase 10 clustered, counted, scanned, streamed, printed help, drew
+    plots = state["plots"]
+    assert plots["checks"] and all(plots["checks"].values())
+    assert plots["pdist_forced_to_device"] and plots["help_sections"] == 25
+    assert plots["column_linkage_rows"] == 4 ** chip_smoke.TINY.leiden_k - 1
+    assert len(plots["drawing"]["drawn"]) + len(plots["drawing"]["raised"]) == 10
 
 
 def test_direct_bh_is_benjamini_hochberg():
@@ -163,3 +169,24 @@ def test_gencode_corpus_is_seeded_and_gencode_shaped():
         assert int(fields[-2]) == len(seq) == n and fields[4] == name
         assert name.endswith(f"-{number}") and len(number) == 3
     assert gtf1.count("\ttranscript\t") == 30 and gtf1.count("\texon\t") == 30
+
+
+def test_plot_phase_helpers():
+    # an order sorted up to the tolerance, and one with an inversion past it
+    keys = np.array([0.1, 0.3, 0.3000001, 0.2])
+    assert chip_smoke.order_within([0, 3, 2, 1], keys, True, 1e-5)
+    assert not chip_smoke.order_within([0, 1, 3, 2], keys, True, 1e-5)
+    assert chip_smoke.order_within([1, 2, 3, 0], keys, False, 1e-5)
+    assert chip_smoke.word_scan("AAAAT", "AA") == [0, 1, 2, 3]
+    assert chip_smoke.word_scan("ACGT", "GTA") == [] and chip_smoke.word_scan("A", "AC") == []
+    from scipy.spatial.distance import pdist
+
+    x = np.random.default_rng(0).normal(size=(12, 8))
+    d = pdist(x, "correlation")
+    agree = chip_smoke.leaf_agreement(d.astype(np.float32).astype(np.float64), d, "complete")
+    assert agree["holds"] and agree["equal_leaf_share"] == 1.0
+    err = chip_smoke.condensed_err(np.array([0.5, np.nan, 0.25 + 2e-5]),
+                                   np.array([[0, 0.5, np.nan], [0.5, 0, 0.25],
+                                             [np.nan, 0.25, 0]]))
+    assert err["same_nan"] and err["within_rtol_1e-4_atol_1e-5"]
+    assert abs(err["max_abs"] - 2e-5) < 1e-12

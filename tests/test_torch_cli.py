@@ -155,9 +155,9 @@ def test_stats_chain(work, capsys):
       "--process_id", "0"], "multi-GPU slice"),
     (["find_dist", "b.fa", "-dp", "2"], "multi-GPU slice"),
     (["find_dist", "b.fa", "-kp", "4"], "multi-GPU slice"),
-    (["find_dist", "b.fa", "-fm", "-pf", "plot"], "viz slice"),
+    (["find_dist", "b.fa", "-fm", "-pf", "plot", "-dp", "3"], "multi-GPU slice"),
     (["find_pval", "a", "b", "m", "s", "3", "f", "-dp", "2"], "multi-GPU slice"),
-    (["kmer_leiden", "a.fa", "m", "s", "3", "-pn", "net"], "viz slice"),
+    (["kmer_leiden", "a.fa", "m", "s", "3", "-pn", "net", "-dp", "4"], "multi-GPU slice"),
     (["kmer_leiden", "a.fa", "m", "s", "3", "-dp", "2"], "multi-GPU slice"),
 ])
 def test_later_slices_are_refused(argv, slice_name, capsys):
@@ -204,7 +204,8 @@ def test_kmer_leiden_files_match(work, stream):
 def test_dispatcher_help_and_unknown(capsys):
     assert cli.main([]) == 0
     out = capsys.readouterr().out
-    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 17
+    assert all(name in out for name in cli.COMMANDS) and len(cli.COMMANDS) == 26
+    assert list(cli.COMMANDS) == list(jax_cli.COMMANDS)
     assert cli.main(["nope"]) == 2
     with pytest.raises(SystemExit) as exc:
         cli.main(["kmer_counts"])  # a bare command prints its help
@@ -222,3 +223,134 @@ def test_module_entry_points(example_fa, work):
                           capture_output=True, text=True, timeout=120,
                           env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0 and "find_pval" in proc.stdout
+
+
+# -- slice 7: the plots, graph and help ----------------------------------------
+
+def recorded(monkeypatch, target, name, pick):
+    """Patch ``target.name`` to record ``pick(args, kwargs)`` of every call."""
+    calls = []
+    original = getattr(target, name)
+
+    def recorder(*args, **kwargs):
+        calls.append(pick(args, kwargs))
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(target, name, recorder)
+    return calls
+
+
+def first_or_data(args, kwargs):
+    return kwargs.get("data", args[0] if args else None)
+
+
+def same(got, want):
+    """Equal drawing data: arrays within 1e-9 relative (a CSV read by the port's
+    reader and by pandas' parser may differ in the last bit), long-form columns
+    with their values within 1e-4, anything else equal."""
+    if isinstance(want, pd.DataFrame):
+        return (list(got["Sample"]) == list(want["Sample"])
+                and list(got["Kword"]) == list(want["Kword"])
+                and np.allclose(np.asarray(got["Value"], np.float64),
+                                want["Value"].to_numpy(np.float64), rtol=1e-4, atol=1e-4))
+    if isinstance(want, np.ndarray):
+        return np.allclose(got, want, rtol=1e-9, atol=1e-12, equal_nan=True)
+    return got == want
+
+
+@pytest.fixture
+def plot_inputs(example_fa, work):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    raw = KmerCounter(example_fa, k=2, mean=False, std=False, silent=True,
+                      device="cpu").get_counts()
+    np.save("mean.npy", raw.mean(axis=0))
+    np.save("std.npy", raw.std(axis=0))
+    x = np.random.default_rng(8).normal(size=(7, 30))
+    sim = np.corrcoef(x)
+    names = [f"s{i}" for i in range(7)]
+    pd.DataFrame(sim, names, names).to_csv("sim.csv")
+    np.save("sim.npy", sim)
+    return example_fa
+
+
+@pytest.mark.parametrize("argv,target,pick", [
+    (["kmer_heatmap", "sim.csv", "-1", "1", "-cl", "-o", "{out}", "-hf", "png", "-hd", "72"],
+     ("seaborn", "heatmap"), first_or_data),
+    (["kmer_dendrogram", "sim.csv", "-dd", "column", "-o", "{out}", "-pf", "png", "-d", "72"],
+     ("scipy.cluster.hierarchy", "dendrogram"), first_or_data),
+    (["kmer_count_barplot", "{fa}", "mean.npy", "std.npy", "2", "-sm", "descending", "-o",
+      "{out}", "-pf", "png", "-d", "72"], ("seaborn", "barplot"), first_or_data),
+    (["kmer_msd_barplot", "{fa}", "mean.npy", "std.npy", "2", "-ss", "sd", "-o", "{out}",
+      "-pf", "png", "-d", "72"], ("seaborn", "barplot"), first_or_data),
+    (["kmer_comp_textplot", "{fa}", "{fa}", "AAA,CG", "-cv", "#000000,#ff0000", "-wl", "40",
+      "-o", "{out}", "-pf", "png", "-d", "72"], ("matplotlib.axes", "Axes.text"),
+     lambda a, kw: (a[1:4], kw.get("color"), kw.get("weight"))),
+    (["kmer_indi_textplot", "{fa}", "TTT", "-wl", "40", "-op", "{out}_", "-pf", "png", "-d",
+      "72"], ("matplotlib.axes", "Axes.text"), lambda a, kw: (a[1:4], kw.get("color"))),
+    (["visualize_distro", "sim.npy", "-o", "{out}", "-b", "12", "-pf", "png", "-d", "72"],
+     ("matplotlib.axes", "Axes.set_title"), lambda a, kw: a[1]),
+], ids=lambda v: v[0] if isinstance(v, list) else None)
+def test_plot_commands_draw_the_same(plot_inputs, work, monkeypatch, capsys, argv, target,
+                                     pick):
+    import importlib
+
+    module = importlib.import_module(target[0])
+    owner, _, name = target[1].rpartition(".")
+    calls = recorded(monkeypatch, getattr(module, owner) if owner else module, name, pick)
+    argv = [a.replace("{fa}", plot_inputs) for a in argv]
+    cli.main([a.replace("{out}", "t") for a in argv] + CPU)
+    ours = len(calls)
+    printed = capsys.readouterr().out
+    jax_cli.main([a.replace("{out}", "j") for a in argv])
+    assert printed == capsys.readouterr().out
+    assert ours > 0 and len(calls) == 2 * ours
+    assert all(same(g, w) for g, w in zip(calls[:ours], calls[ours:]))
+    assert sorted(p.name[1:] for p in work.glob("t*.png")) == \
+        sorted(p.name[1:] for p in work.glob("j*.png"))
+    assert any(work.glob("t*.png"))
+
+
+@pytest.mark.parametrize("adj", ["sim.npy", "sim.csv"])
+def test_graph_writes_seekr_tpus_files(plot_inputs, work, adj):
+    both(["graph", adj, "-g", "{out}.gml", "-c", "{out}.csv", "-t", "0.05", "-s", "0"])
+    assert (work / "t.csv").read_bytes() == (work / "j.csv").read_bytes()
+    if adj.endswith(".npy"):
+        assert (work / "t.gml").read_bytes() == (work / "j.gml").read_bytes()
+    else:  # pandas' CSV parser and the port's may differ in a weight's last bit
+        import networkx
+
+        got, want = networkx.read_gml("t.gml"), networkx.read_gml("j.gml")
+        assert list(got.nodes(data=True)) == list(want.nodes(data=True))
+        assert [e[:2] for e in got.edges(data=True)] == [e[:2] for e in want.edges(data=True)]
+        np.testing.assert_allclose([w for *_, w in got.edges(data="weight")],
+                                   [w for *_, w in want.edges(data="weight")], rtol=1e-15)
+
+
+def test_fit_and_network_plots_are_written(work):
+    bkg = random_fasta(work / "bkg.fa", 40, 4)
+    cli.main(["find_dist", bkg, "-k", "2", "-fm", "-mdl", "norm,expon", "-pf", "fits"] + CPU)
+    assert (work / "fits.pdf").stat().st_size > 0
+    cli.main(["norm_vectors", bkg, "-k", "2", "-mv", "mean.npy", "-sv", "std.npy"] + CPU)
+    cli.main(["kmer_leiden", bkg, "mean.npy", "std.npy", "2", "-pco", "0.3", "-sd",
+              "-pn", "net"] + CPU)
+    assert (work / "net.pdf").stat().st_size > 0
+
+
+def test_help_prints_every_command_without_plotting_libraries(work):
+    code = ("import sys\n"
+            "for name in ('matplotlib', 'seaborn', 'networkx', 'pandas', 'jax'):\n"
+            "    sys.modules[name] = None  # any import of them raises\n"
+            "from seekr_tpu_torch import cli\n"
+            "cli.main(['help'])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=work, capture_output=True,
+                          text=True, timeout=120, env={"PYTHONPATH": str(ROOT),
+                                                       "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    sections = [lines[i + 1] for i in range(len(lines) - 2)
+                if lines[i] == lines[i + 2] == "=" * 25]
+    assert sections == [c for c in cli.COMMANDS if c != "help"]
+    assert "flag table unavailable" not in proc.stdout and "--device" in proc.stdout
+    assert cli.main(["help", "-v"]) == 0

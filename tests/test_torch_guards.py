@@ -59,7 +59,7 @@ def test_port_needs_neither_pandas_nor_tqdm(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_plotting_library_at_module_level(path):
-    # the card's machine has neither: the plots import them inside a function
+    # the card's machine has none of them: the plots import them inside a function
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in tree.body:
         if isinstance(node, ast.Import):
@@ -68,7 +68,8 @@ def test_port_imports_no_plotting_library_at_module_level(path):
             names = [node.module or ""]
         else:
             continue
-        assert not any(n.split(".")[0] in ("networkx", "matplotlib") for n in names), \
+        assert not any(n.split(".")[0] in ("networkx", "matplotlib", "seaborn")
+                       for n in names), \
             f"{path} imports {names} at module level"
 
 
@@ -77,6 +78,12 @@ def test_port_needs_no_requests(path):
     # the card's machine has no requests: the downloader reads with urllib
     for name in imported_modules(path):
         assert name.split(".")[0] != "requests", f"{path} imports {name}"
+
+
+ALIASES = ("fasta", "fasta_reader", "kmer_counts", "pearson", "find_dist", "find_pval",
+           "adj_pval", "filter_gencode", "kmer_heatmap", "kmer_dendrogram",
+           "kmer_count_barplot", "kmer_msd_barplot", "kmer_comp_textplot",
+           "kmer_indi_textplot", "kmer_leiden", "my_tqdm")
 
 
 def test_port_imports_without_jax_in_a_fresh_process():
@@ -90,9 +97,13 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "seekr_tpu_torch.stats.stream_adj, seekr_tpu_torch.models.workflow, "
             "seekr_tpu_torch.models.domain, seekr_tpu_torch.models.pwm, "
             "seekr_tpu_torch.data, seekr_tpu_torch.utils.doctor, "
-            "seekr_tpu_torch.utils.logging, seekr_tpu_torch.utils.profiler; "
+            "seekr_tpu_torch.utils.logging, seekr_tpu_torch.utils.profiler, "
+            "seekr_tpu_torch.viz, seekr_tpu_torch.ops.dist, seekr_tpu_torch.graph.maker, "
+            "seekr_tpu_torch.viz.long_form, seekr_tpu_torch.utils.progress, "
+            + ", ".join(f"seekr_tpu_torch.{name}" for name in ALIASES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'seekr_tpu', 'pandas', 'networkx', 'matplotlib', 'requests')]; "
+            "('jax', 'seekr_tpu', 'pandas', 'networkx', 'matplotlib', 'seaborn', "
+            "'requests')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -157,6 +168,45 @@ def test_slice_six_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv)
     assert not (tmp_path / "o").exists()
+
+
+def test_slice_seven_entry_points_do_not_fall_back(monkeypatch, tmp_path):
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.io.fast_csv import LabeledMatrix
+    from seekr_tpu_torch.ops.dist import pdist_auto, pdist_device
+    from seekr_tpu_torch.viz import (kmer_count_barplot, kmer_dendrogram, kmer_heatmap,
+                                     kmer_msd_barplot)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "a.fa").write_text(">a\nACGTACGT\n>b\nGGGTTTAA\n")
+    fa = str(tmp_path / "a.fa")
+    np.save(tmp_path / "mean.npy", np.ones(16))
+    np.save(tmp_path / "std.npy", np.ones(16))
+    vectors = (str(tmp_path / "mean.npy"), str(tmp_path / "std.npy"))
+    x = np.random.default_rng(0).normal(size=(4, 6))
+    sim = LabeledMatrix(np.corrcoef(x), list("abcd"), list("abcd"))
+    for call in (lambda: kmer_count_barplot(fa, *vectors, 2),
+                 lambda: kmer_msd_barplot(fa, *vectors, 2),
+                 lambda: pdist_device(x),
+                 lambda: pdist_auto(x),
+                 lambda: kmer_heatmap(sim, -1, 1, outputname=str(tmp_path / "h")),
+                 lambda: kmer_dendrogram(sim, outputname=str(tmp_path / "d"))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    np.save(tmp_path / "sim.npy", sim.values)
+    sim.to_csv(tmp_path / "sim.csv")
+    for argv in (["kmer_heatmap", str(tmp_path / "sim.csv"), "-1", "1"],
+                 ["kmer_dendrogram", str(tmp_path / "sim.csv")],
+                 ["kmer_count_barplot", fa, *vectors, "2"],
+                 ["kmer_msd_barplot", fa, *vectors, "2"],
+                 ["kmer_comp_textplot", fa, fa, "AC"],
+                 ["kmer_indi_textplot", fa, "AC"],
+                 ["graph", str(tmp_path / "sim.npy")],
+                 ["visualize_distro", str(tmp_path / "sim.npy")]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "a.fa", "mean.npy", "sim.csv", "sim.npy", "std.npy"]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -174,8 +174,9 @@ def test_leiden_membership_of_a_matrix_matches(tmp_path):
 
 def test_what_raises_and_what_returns_none(corpus, capsys):
     fa, (mean, std) = corpus[1], corpus[2][3]
-    with pytest.raises(NotImplementedError, match="viz slice"):
-        leiden.kmer_leiden(fa, mean, std, 3, plotname="net", device="cpu")
+    # streamed, the plot is skipped with seekr_tpu's message and nothing is drawn
+    leiden.kmer_leiden(fa, mean, std, 3, stream=True, plotname="net", device="cpu")
+    assert "skips the spring-layout plot (net.pdf not written)" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         leiden.kmer_leiden(fa, mean, std, 3, data_parallel=2, device="cpu")
     # norm vectors of another k: printed and None, as seekr_tpu

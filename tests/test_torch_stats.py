@@ -397,8 +397,8 @@ def test_adj_pval_rejects_other_inputs_and_asymmetric_labels(capsys):
 
 
 def test_entry_points_refuse_what_later_slices_bring(corpus):
-    with pytest.raises(NotImplementedError, match="viz slice"):
-        find_dist(corpus["bkg"], plotfit="plot", device=CPU)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        find_dist(corpus["bkg"], plotfit="plot", kmer_parallel=2, device=CPU)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         find_dist(corpus["bkg"], data_parallel=2, device=CPU)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
