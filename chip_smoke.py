@@ -123,13 +123,45 @@ and runs these phases, each a function of (device, scale, state):
    sections.  The drawing entry points draw where matplotlib, seaborn and
    networkx are installed, and otherwise raise ``ModuleNotFoundError`` naming
    the missing one (the card's machine has none; the drawing is held to
-   seekr_tpu on the CPU by ``tests/test_torch_viz.py`` and its neighbours).
+   seekr_tpu on the CPU by ``tests/test_torch_viz.py`` and its neighbours);
+11. the device mesh in one process (``seekr_tpu_torch.parallel``) over every
+   visible card, or four shards of the one card (``[cuda:0] * 4``: every line
+   of the sharded code and its kernels, but no copy between cards, so no
+   measure of scaling).  ``distributed_pipeline`` on phase 3's corpus at k = 6
+   (the median of 5 beside the single path's forward in the same call, and the
+   count kernel's device ms on one shard), ``flat=False`` and the norm-vector
+   mode once each; ``distributed_norm_stats``; a (2, 2) grid at k = 9 on 2,048
+   rows (``count_kmers_hiblocked`` per data shard, 2.1 GB of counts);
+   ``count_long_sequence`` on one 4 Mb transcript; ``stream_pearson_sharded``
+   on the 13,000^2 self matrix and 1,000 x 13,000; ``find_dist`` (phase 6's
+   seeded draw, k = 4), ``find_pval`` (cross and self) and ``kmer_leiden`` (the
+   first 2,600 of phase 8's family transcripts) with ``data_parallel`` (below
+   two cards it resolves to the shards of the one card, through
+   ``data_parallel_on_shards``); the CLI's ``find_dist -dp`` (on one card it
+   must fail with seekr_tpu's "requested 4 devices ... have 1"); the service
+   with ``mesh=`` on phase 7's targets (Q=1 ``sim`` and Q=128 ``topk=10``
+   interleaved with the single-card service, growth within and across the
+   width quantum, a snapshot); a checkpoint of the sharded 13,000 x 4,096
+   counts restored onto the (2, 2) grid.  Checked: counts per shard bitwise;
+   normalized counts, mean and std within rtol 1e-4 / atol 1e-5 and r within
+   1e-4 of the single device; at k = 9, the grid's r and the single path's
+   within 1e-4 of float64 (the single path as one cuBLAS product, as before
+   ``ops.pearson.gram`` cut long contractions into 4,096-column pieces, is
+   printed beside them); the long sequence bitwise a whole-row
+   ``count_torch``; the streamed tiles within 1e-4; find_dist and find_pval
+   within 1e-5 of the single card, the self p-values exactly symmetric; the
+   Leiden membership equal to the single card's and the planted families; the
+   service's sim within 1e-6 and its top-k equal away from near ties,
+   bitwise across a grow within the quantum and a snapshot; the checkpoint
+   bitwise.
 
 Launch counts are set to 0 just before phases 3, 4, 6, 7, 8, 9 (the workflow,
-``domain_pearson`` and the PWM counts) and 10 (the profiles and the barplots'
-counts) drive the main path and read just after; the run fails if a kernel of
-the path was not launched, and phases 9 and 10 fail if their counting did not
-launch ``count_kmers_smem``.
+``domain_pearson`` and the PWM counts), 10 (the profiles and the barplots'
+counts) and each main-path section of phase 11 drive the main path and read just
+after; the run fails if a kernel of the path was not launched, phases 9 and 10
+fail if their counting did not launch ``count_kmers_smem``, and phase 11 if its
+pipeline did not launch ``count_kmers_smem`` on every shard or its k = 9 grid
+``count_kmers_hiblocked`` on every data shard.
 The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -202,6 +234,9 @@ class Scale:
     rand_m: int          # transcripts shuffled by gen_rand_rnas
     plot_check_rows: int  # head rows of the profiles held against scipy's pdist
     heatmap_rows: int    # edge of phase 3's self-Pearson block the heatmap clusters
+    mesh_kmer_m: int     # rows of the kmer-axis mesh run at k = LARGE_K
+    mesh_long_len: int   # bases of the long transcript counted sequence-parallel
+    mesh_reps: int       # timed repetitions of the mesh pipeline
 
 
 FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
@@ -212,7 +247,8 @@ FULL = Scale(corpus_m=13_000, corpus_cap=4096, kernel_m=2048, kernel_m_big=256,
              leiden_families=260, leiden_members=50, leiden_dense_export=500, wf_k=6,
              wf_families=52, adj_tie_cap=2_000, adj_tie_rows=50, dom_queries=8,
              dom_targets=1000, dom_window=(1000, 100), pwm_count=64, pwm_k=5, rand_m=1000,
-             plot_check_rows=1000, heatmap_rows=4096)
+             plot_check_rows=1000, heatmap_rows=4096, mesh_kmer_m=2048,
+             mesh_long_len=4_000_000, mesh_reps=5)
 TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              kernel_lmax=600, large_k_m=12, long_lengths=(16_500, 17_000), reps=2,
              stats_subset=600, stats_query=16, stats_self=24, stats_pairs=500,
@@ -221,7 +257,7 @@ TINY = Scale(corpus_m=96, corpus_cap=1024, kernel_m=24, kernel_m_big=6,
              leiden_families=6, leiden_members=8, leiden_dense_export=20, wf_k=4,
              wf_families=3, adj_tie_cap=2, adj_tie_rows=16, dom_queries=2, dom_targets=8,
              dom_window=(300, 50), pwm_count=4, pwm_k=3, rand_m=16, plot_check_rows=20,
-             heatmap_rows=40)
+             heatmap_rows=40, mesh_kmer_m=16, mesh_long_len=20_000, mesh_reps=2)
 
 
 def log(*parts) -> None:
@@ -944,6 +980,7 @@ def phase_stats(device, scale, state):
                 "corpus.fa", k_mer=STATS_K, subsetting=True, subset_size=scale.stats_subset,
                 fit_model=False, device=device))
             bkg = results["find_dist"]
+            state["stats_background"] = bkg  # phase 11 draws it again on the mesh
             step("fit_distributions", lambda: fit_distributions(
                 bkg, resolve_models(STATS_MODELS)))
             fitres = results["fit_distributions"]
@@ -2803,8 +2840,438 @@ def phase_plots(device, scale, state):
         raise AssertionError(f"plots checks failed: {failures}")
 
 
+MESH_SHARDS_ON_ONE_CARD = 4  # a mesh on one card (or the CPU): four shards of it
+
+
+def mesh_devices(device):
+    """(devices, cards): every visible card, or four shards of the one card (of
+    the CPU in the rehearsal)."""
+    import torch
+
+    if not is_cuda(device):
+        return [torch.device("cpu")] * MESH_SHARDS_ON_ONE_CARD, 0
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        return [torch.device(device)] * MESH_SHARDS_ON_ONE_CARD, 1
+    return [torch.device("cuda", i) for i in range(cards)], cards
+
+
+@contextmanager
+def data_parallel_on_shards(cards):
+    """Below two cards, ``data_parallel=N`` (the library's mesh flags) resolves
+    to N shards of the one device: the library itself refuses more devices than
+    cards, as the CLI check shows.  With more cards nothing is changed."""
+    import torch
+
+    from seekr_tpu_torch.parallel import mesh as mesh_mod
+
+    if cards > 1:
+        yield
+        return
+    real = mesh_mod.build_mesh_from_flags
+
+    def shards(data_parallel, kmer_parallel=1, device=None, **_):
+        kp = max(kmer_parallel or 1, 1)
+        dp = data_parallel or (1 if kp > 1 else 0)
+        if dp * kp <= 1:
+            return None
+        return mesh_mod.make_mesh([torch.device(device)] * (dp * kp), kmer_parallel=kp)
+
+    mesh_mod.build_mesh_from_flags = shards
+    try:
+        yield
+    finally:
+        mesh_mod.build_mesh_from_flags = real
+
+
+@contextmanager
+def counted(state, name):
+    """A main-path section: launch counts set to 0 before it and read after it
+    (into the kernels line); yields the section's own launches, filled at exit."""
+    from seekr_tpu_torch.ops import count_cuda
+
+    count_cuda.reset_launches()
+    launched = {}
+    yield launched
+    launched.update(count_cuda.launches)
+    read_launches(state, name)
+
+
+def sync_all(devices) -> None:
+    for dev in {str(d): d for d in devices}.values():
+        sync(dev)
+
+
+class _TileDiff:
+    """Writer holding streamed tiles against the rows of a reference matrix."""
+
+    def __init__(self, ref):
+        self.ref, self.row, self.max_abs = ref, 0, 0.0
+
+    def append(self, tile):
+        rows = self.ref[self.row:self.row + tile.shape[0]]
+        self.max_abs = max(self.max_abs, float(np.abs(tile - rows).max()))
+        self.row += tile.shape[0]
+
+
+def close_on_device(a, b, rtol=1e-4, atol=1e-5):
+    """(allclose with NaN where NaN, max abs of the finite differences)."""
+    import torch
+
+    b = b.to(a.device)
+    ok = bool(torch.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True))
+    diff = (a - b).abs()
+    diff = diff[torch.isfinite(diff)]
+    return ok, float(diff.max()) if diff.numel() else 0.0
+
+
+def phase_mesh(device, scale, state):
+    """Phase 11: the device mesh in one process (``seekr_tpu_torch.parallel``) on
+    every visible card, or four shards of the one card: the sharded pipeline, the
+    norm statistics, the kmer axis at k = 9, the long sequence, the streamed
+    Pearson, the mesh callers, the CLI's -dp, the sharded service and a
+    checkpoint, each held against its single-device run."""
+    import importlib
+    import os
+
+    import torch
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.io.checkpoint import load_sharded, save_sharded
+    from seekr_tpu_torch.io.stream import stream_pearson
+    from seekr_tpu_torch.models.pipeline import SeekrPipeline
+    from seekr_tpu_torch.ops.count import count_graph, count_kmers_long, count_torch
+    from seekr_tpu_torch.ops.normalize import normalize_graph
+    from seekr_tpu_torch.ops import pearson as pearson_ops
+    from seekr_tpu_torch.ops.pearson import _RowFiller
+    from seekr_tpu_torch.parallel import dist
+    from seekr_tpu_torch.parallel.mesh import make_mesh, row_col_sharding
+    from seekr_tpu_torch.serve import SeekrService
+    from seekr_tpu_torch.stats import find_dist, find_pval
+
+    leiden = importlib.import_module("seekr_tpu_torch.graph.kmer_leiden")
+    devices, cards = mesh_devices(device)
+    n = len(devices)
+    mesh = make_mesh(devices)
+    grid = make_mesh((devices * 4)[:4], kmer_parallel=2)
+    out = {"phase": "mesh", "card": state.get("smi"), "cards": cards, "shards": n,
+           "kmer_grid": [2, 2]}
+    checks, walls = {}, {}
+    seed, dev = state["seed"], str(device)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        sync_all(devices)
+        walls[name] = time.perf_counter() - t0
+        return result
+
+    # -- the sharded pipeline, phase 3's corpus at k = 6 ----------------------
+    bases, lengths = state["corpus"]
+    m = bases.shape[0] - bases.shape[0] % n  # rows divide the data axis
+    bt = torch.as_tensor(bases[:m], device=device)
+    nt = torch.as_tensor(lengths[:m], device=device)
+    pipe = SeekrPipeline(k=PIPELINE_K, device=device)
+    ref_counts, ref_mean, ref_std = pipe.counts(bt, nt)  # the single device
+    ref_sim = pipe.forward(bt, nt)
+    step = dist.distributed_pipeline(mesh, k=PIPELINE_K)
+    with counted(state, "mesh: pipeline") as launched:
+        got = step(bt, nt)
+        sync_all(devices)
+        mesh_ms = []
+        for _ in range(scale.mesh_reps):
+            t0 = time.perf_counter()
+            got = step(bt, nt)
+            sync_all(devices)
+            mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        parts = dist._sharded_count(mesh, bt, nt, PIPELINE_K)
+        three = dist.distributed_pipeline(mesh, k=PIPELINE_K, flat=False)(bt, nt)
+        vec = dist.distributed_pipeline(mesh, k=PIPELINE_K, use_norm_vectors=True)(
+            bt, nt, ref_mean, ref_std)
+        stats = dist.distributed_norm_stats(mesh, k=PIPELINE_K)(bt, nt)
+        sync_all(devices)
+    single_ms = []
+    for _ in range(scale.mesh_reps):  # the single path in the same call, for scale
+        t0 = time.perf_counter()
+        pipe.forward(bt, nt)
+        sync(device)
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(rows=m, k=PIPELINE_K, pipeline_ms_median=statistics.median(mesh_ms),
+               pipeline_ms_all=mesh_ms, single_forward_ms_median=statistics.median(single_ms),
+               pipeline_launches=dict(launched))
+    checks["pipeline launched count_kmers_smem per shard"] = (
+        not is_cuda(device) or launched["count_kmers_smem"] >= n * (scale.mesh_reps + 1))
+    whole = count_graph(bt, nt, PIPELINE_K)
+    m_loc = m // n
+    checks["counts per shard bitwise"] = all(
+        torch.equal(part.to(device), whole[i * m_loc:(i + 1) * m_loc])
+        for i, part in enumerate(parts))
+    if is_cuda(device):
+        b0, n0 = bt[:m_loc].contiguous(), nt[:m_loc].contiguous()
+        out["count_ms_per_shard"] = cuda_ms(lambda: count_graph(b0, n0, PIPELINE_K),
+                                            scale.reps)
+    del parts, whole
+    for name, (a, b) in {"normalized": (got[0].gather(device), ref_counts),
+                         "mean": (got[1].gather(device), ref_mean),
+                         "std": (got[2].gather(device), ref_std),
+                         "flat=False normalized": (
+                             three[0].gather(device).reshape(m, -1), ref_counts),
+                         "norm-vector normalized": (vec[0].gather(device), ref_counts)}.items():
+        checks[f"pipeline {name} within rtol 1e-4 / atol 1e-5"], err = close_on_device(a, b)
+        out[f"pipeline_{name.replace(' ', '_').replace('=', '_')}_max_abs"] = err
+    for name, sim in (("r", got[3]), ("flat=False r", three[3]), ("norm-vector r", vec[3])):
+        err = float((sim.gather(device) - ref_sim).abs().max())
+        out[f"pipeline_{name.replace(' ', '_').replace('=', '_')}_max_abs"] = err
+        checks[f"pipeline {name} within 1e-4"] = err <= 1e-4
+    raw = count_graph(bt, nt, PIPELINE_K)
+    _, raw_mean, raw_std = normalize_graph(raw, None, None, "Log2.none")
+    for name, (a, b) in {"mean": (stats[0].gather(device), raw_mean),
+                         "std": (stats[1].gather(device), raw_std)}.items():
+        checks[f"norm stats {name} within rtol 1e-4 / atol 1e-5"], err = close_on_device(a, b)
+        out[f"norm_stats_{name}_max_abs"] = err
+    normalized = ref_counts
+    sharded_counts = got[0]
+    del got, three, vec, stats, raw, ref_sim
+
+    # -- the kmer axis: a (2, 2) grid at k = 9 ----------------------------------
+    kb, kn = make_corpus(scale.mesh_kmer_m, scale.corpus_cap, seed + 11)
+    kbt, knt = torch.as_tensor(kb, device=device), torch.as_tensor(kn, device=device)
+    raw = count_graph(kbt, knt, LARGE_K)
+    _, kmean, kstd = normalize_graph(raw, None, None, "Log2.none")
+    kstd = torch.where(kstd > 0, kstd, torch.ones_like(kstd))  # finite vectors
+    del raw
+    kpipe = SeekrPipeline(k=LARGE_K, log2="Log2.none", device=device)
+    with counted(state, "mesh: kmer axis") as launched:
+        kgot = timed("kmer_axis_pipeline_s", lambda: dist.distributed_pipeline(
+            grid, k=LARGE_K, log2="Log2.none", use_norm_vectors=True)(kbt, knt, kmean, kstd))
+    out["kmer_axis"] = {"rows": scale.mesh_kmer_m, "k": LARGE_K,
+                        "count_bytes": scale.mesh_kmer_m * 4 ** LARGE_K * 4,
+                        "launches": dict(launched)}
+    checks["kmer axis launched count_kmers_hiblocked per data shard"] = (
+        not is_cuda(device) or launched["count_kmers_hiblocked"] >= 2)
+    kref = kpipe.counts(kbt, knt, kmean, kstd)[0]
+    checks["kmer axis normalized within rtol 1e-4 / atol 1e-5"], err = close_on_device(
+        kgot[0].gather(device), kref)
+    out["kmer_axis"]["normalized_max_abs"] = err
+    r64 = f64_pearson_device(kref, kref)  # 262,144-term sums: held to float64
+    del kref
+    r_mesh = kgot[3].gather(device).cpu().numpy()
+    r_one = kpipe.forward(kbt, knt, kmean, kstd).cpu().numpy()
+    chunk, pearson_ops.GEMM_CHUNK = pearson_ops.GEMM_CHUNK, 4 ** LARGE_K
+    try:  # the contraction as one product, as before ops.pearson.gram: a reading
+        r_whole = kpipe.forward(kbt, knt, kmean, kstd).cpu().numpy()
+    finally:
+        pearson_ops.GEMM_CHUNK = chunk
+    out["kmer_axis"].update(
+        r_max_abs_vs_f64=float(np.abs(r_mesh - r64).max()),
+        single_r_max_abs_vs_f64=float(np.abs(r_one - r64).max()),
+        single_one_product_r_max_abs_vs_f64=float(np.abs(r_whole - r64).max()),
+        r_max_abs_vs_single=float(np.abs(r_mesh - r_one).max()))
+    checks["kmer axis r within 1e-4 of float64"] = \
+        out["kmer_axis"]["r_max_abs_vs_f64"] <= 1e-4
+    checks["the single path's k = 9 r within 1e-4 of float64"] = \
+        out["kmer_axis"]["single_r_max_abs_vs_f64"] <= 1e-4
+    del kgot, kbt, knt, r64, r_mesh, r_one, r_whole
+
+    # -- the long sequence ------------------------------------------------------
+    rng = np.random.default_rng(seed + 12)
+    digits = rng.integers(0, 4, size=scale.mesh_long_len, dtype=np.int8)
+    digits[rng.random(scale.mesh_long_len) < 5e-4] = 4
+    chunks, n_windows = dist.shard_long_sequence(digits, PIPELINE_K, mesh.size)
+    with counted(state, "mesh: long sequence"):
+        long_got = timed("long_sequence_s", lambda: dist.count_long_sequence(
+            mesh, PIPELINE_K)(chunks, np.float32(n_windows)))
+    long_ref = count_torch(torch.as_tensor(digits[None], device=device),
+                           torch.tensor([len(digits)], dtype=torch.int32, device=device),
+                           PIPELINE_K)[0]
+    checks["long sequence bitwise the whole-row count"] = bool(
+        torch.equal(long_got.to(device), long_ref))
+    out["long_sequence"] = {"bases": len(digits), "windows": int(n_windows),
+                            "max_abs_vs_count_kmers_long": float(np.abs(
+                                long_got.cpu().numpy()
+                                - count_kmers_long(digits, PIPELINE_K, device=device)).max())}
+
+    # -- the streamed Pearson, self and cross -----------------------------------
+    q, s = scale.stats_query, scale.stats_self
+    full, sharded = (np.empty((m, m), dtype=np.float32) for _ in range(2))
+    timed("stream_pearson_single_s", lambda: stream_pearson(
+        normalized, normalized, _RowFiller(full), device=device))
+    filler = _RowFiller(sharded)  # the same writer as the single run's
+    with counted(state, "mesh: stream_pearson_sharded"):
+        timed("stream_pearson_sharded_s", lambda: dist.stream_pearson_sharded(
+            mesh, normalized, filler))
+    out["stream_self_max_abs"] = float(np.abs(sharded - full).max())
+    checks["streamed self within 1e-4"] = filler.row == m and \
+        out["stream_self_max_abs"] <= 1e-4
+    del sharded
+    cross = _TileDiff(full[:q])
+    with counted(state, "mesh: stream_pearson_sharded cross"):
+        timed("stream_pearson_sharded_cross_s", lambda: dist.stream_pearson_sharded(
+            mesh, normalized[:q], cross, counts2=normalized))
+    out["stream_cross_max_abs"] = cross.max_abs
+    checks["streamed cross within 1e-4"] = cross.row == q and cross.max_abs <= 1e-4
+    del full
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            seqs = state["seqs"]
+            write_fasta_file("corpus.fa", seqs)  # set-up: the user's files
+            write_fasta_file("query.fa", seqs[:q])
+            write_fasta_file("self.fa", seqs[:s])
+            vectors = (f"bkg_mean_{STATS_K}mers.npy", f"bkg_std_{STATS_K}mers.npy")
+
+            # -- the mesh callers: find_dist, find_pval, kmer_leiden ---------
+            with data_parallel_on_shards(cards), counted(state, "mesh: callers"):
+                np.random.seed(seed)  # phase 6's draw, on the mesh
+                bkg = timed("find_dist_s", lambda: find_dist(
+                    "corpus.fa", k_mer=STATS_K, subset_size=scale.stats_subset,
+                    fit_model=False, data_parallel=n, device=device))
+                fitres = [("norm", 0.0, (float(bkg.mean()), float(bkg.std())))]
+                p_mesh = timed("find_pval_cross_s", lambda: find_pval(
+                    "query.fa", "corpus.fa", *vectors, STATS_K, fitres, data_parallel=n,
+                    device=device))
+                p_self = timed("find_pval_self_s", lambda: find_pval(
+                    "self.fa", "self.fa", *vectors, STATS_K, fitres, data_parallel=n,
+                    device=device))
+            err = float(np.abs(bkg - state["stats_background"]).max())
+            out["find_dist_max_abs_vs_phase_6"] = err
+            checks["find_dist within 1e-5 of phase 6's single-card draw"] = (
+                bkg.shape == state["stats_background"].shape and err <= 1e-5)
+            p_one = timed("find_pval_cross_single_s", lambda: find_pval(
+                "query.fa", "corpus.fa", *vectors, STATS_K, fitres, device=device))
+            err = float(np.abs(p_mesh.values - p_one.values).max())
+            out["find_pval_max_abs_vs_single"] = err
+            checks["find_pval within 1e-5 of the single card"] = (
+                p_mesh.index == p_one.index and err <= 1e-5)
+            checks["find_pval self exactly symmetric"] = bool(
+                np.array_equal(p_self.values, p_self.values.T))
+
+            fam_seqs, fam_truth = state["families"]
+            n_fam = scale.wf_families * scale.leiden_members
+            write_fasta_file("families.fa", fam_seqs[:n_fam])
+            cli.main(["norm_vectors", "families.fa", "-k", str(scale.leiden_k), "-mv",
+                      "fam_mean.npy", "-sv", "fam_std.npy", "--device", dev])
+            run = ("families.fa", "fam_mean.npy", "fam_std.npy", scale.leiden_k)
+            with data_parallel_on_shards(cards), counted(state, "mesh: kmer_leiden"):
+                members = timed("kmer_leiden_s", lambda: leiden.kmer_leiden(
+                    *run, pearsoncutoff=LEIDEN_CUTOFF, setseed=True, data_parallel=n,
+                    device=device))
+            alone = timed("kmer_leiden_single_s", lambda: leiden.kmer_leiden(
+                *run, pearsoncutoff=LEIDEN_CUTOFF, setseed=True, stream=True, device=device))
+            checks["kmer_leiden membership equal to the single card"] = bool(
+                np.array_equal(members, alone))
+            checks["kmer_leiden finds the planted families"] = same_partition(
+                members, fam_truth[:n_fam])
+
+            # -- the CLI: -dp N needs N cards ----------------------------------
+            n_sample = min(1000, q * (q - 1) // 2)
+            argv = ["find_dist", "query.fa", "-k", str(STATS_K), "-sbt", "-sbs", str(n_sample),
+                    "-o", "cli_mesh", "--device", dev]
+            if cards == 1:
+                try:
+                    cli.main(argv + ["-dp", str(n)])
+                    out["cli_dp"] = "ran"
+                except ValueError as err:
+                    out["cli_dp"] = str(err)
+                checks["find_dist -dp 4 refused on one card"] = out["cli_dp"] == (
+                    f"requested {n} devices (data_parallel={n} x kmer_parallel=1), have 1")
+            else:
+                with counted(state, "mesh: CLI"):
+                    cli.main(argv + ["-dp", str(n)])
+                out["cli_dp"] = f"-dp {n} ran"
+                checks[f"find_dist -dp {n} wrote its sample"] = \
+                    np.loadtxt("cli_mesh.csv", delimiter=",").shape == (n_sample,)
+
+            # -- the service on the mesh ---------------------------------------
+            write_fasta_file("targets.fa", seqs)
+            raw = count_graph(torch.as_tensor(bases, device=device),
+                              torch.as_tensor(lengths, device=device), SERVE_K)
+            _, smean, sstd = normalize_graph(raw, None, None, "Log2.none")
+            del raw
+            np.save("s_mean.npy", smean.cpu().numpy())
+            np.save("s_std.npy", sstd.cpu().numpy())
+            svec = ("s_mean.npy", "s_std.npy")
+            rng = np.random.default_rng(seed + 13)
+            q1 = [random_queries(rng, 1) for _ in range(scale.serve_rounds * scale.serve_q1)]
+            big = [random_queries(rng, scale.serve_big_q)
+                   for _ in range(scale.serve_rounds * scale.serve_big)]
+            check_q = random_queries(rng, SERVE_CHECK_Q)
+            grow_in, grow_across = (random_queries(rng, k) for k in scale.serve_grow)
+            one = SeekrService(*svec, k=SERVE_K, targets="targets.fa",
+                               grow_quantum=SERVE_QUANTUM, device=device)
+            one.warmup()
+            with counted(state, "mesh: service") as launched:
+                svc = timed("serve_load_s", lambda: SeekrService(
+                    *svec, k=SERVE_K, targets="targets.fa", grow_quantum=SERVE_QUANTUM,
+                    mesh=mesh, device=device))
+                rows_at_load = svc._resident_rows()
+                timed("serve_warmup_s", svc.warmup)
+                lat = {"mesh_q1": [], "single_q1": [], "mesh_big": [], "single_big": []}
+                for r in range(scale.serve_rounds):  # interleaved, single card beside
+                    for name, batches, want in (
+                            ("q1", q1[r * scale.serve_q1:(r + 1) * scale.serve_q1], ("sim",)),
+                            ("big", big[r * scale.serve_big:(r + 1) * scale.serve_big],
+                             ("topk",))):
+                        lat[f"mesh_{name}"] += timed_queries(svc, batches, want)
+                        lat[f"single_{name}"] += timed_queries(one, batches, want)
+                sims = [(svc.query(b)["sim"], one.query(b)["sim"]) for b in q1]
+                tops = [(svc.query(b, want=("topk",), topk=SERVE_TOPK),
+                         one.query(b, want=("topk",), topk=SERVE_TOPK + 1)) for b in big]
+                before = svc.query(check_q)["sim"]
+                timed("serve_grow_within_s", lambda: svc.add_targets(grow_in))
+                within = svc.query(check_q)["sim"]
+                timed("serve_grow_across_s", lambda: svc.add_targets(grow_across))
+                grown = svc.query(check_q)["sim"]
+                rows_after = svc._resident_rows()
+                timed("serve_save_corpus_s", lambda: svc.save_corpus("mesh.npz"))
+                loaded = timed("serve_snapshot_load_s", lambda: SeekrService(
+                    *svec, k=SERVE_K, targets="mesh.npz", grow_quantum=SERVE_QUANTUM,
+                    mesh=mesh, device=device))
+                reloaded = loaded.query(check_q)["sim"]
+            for name, ms in lat.items():
+                out[f"serve_{name}_ms_median"] = statistics.median(ms)
+            out["serve_launches"] = dict(launched)
+            out["serve_resident_rows"] = {"targets": len(seqs), "at_load": rows_at_load,
+                                          "after_growth": rows_after}
+            err = max(float(np.abs(a - b).max()) for a, b in sims)
+            out["serve_sim_max_abs_vs_single"] = err
+            checks["service sim within 1e-6 of the single card"] = err <= 1e-6
+            checks["service top-k agrees with the single card"] = all(
+                topk_agrees(a["topk_sim"], a["topk_idx"], b["topk_sim"], b["topk_idx"])
+                for a, b in tops)
+            checks["service grow within the quantum bitwise"] = bool(
+                np.array_equal(within[:, :len(seqs)], before))
+            n_grown = len(seqs) + sum(scale.serve_grow)
+            checks["service grow across the quantum"] = bool(
+                np.abs(grown[:, :len(seqs)] - before).max() <= 1e-5
+                and rows_after == svc._scorer.prospective_rows(n_grown))
+            checks["service snapshot reload bitwise"] = bool(np.array_equal(reloaded, grown))
+            del one, svc, loaded
+
+            # -- a checkpoint of the sharded counts ----------------------------
+            with counted(state, "mesh: checkpoint"):
+                timed("checkpoint_save_s", lambda: save_sharded("ckpt", sharded_counts))
+                back = timed("checkpoint_load_s", lambda: load_sharded(
+                    "ckpt", sharding=row_col_sharding(grid)))
+            checks["checkpoint round trip bitwise onto the (2, 2) grid"] = bool(torch.equal(
+                back.gather(device), sharded_counts.gather(device)))
+            out["checkpoint_bytes"] = m * 4 ** PIPELINE_K * 4
+        finally:
+            os.chdir(home)
+
+    out["walls_s"] = walls
+    out["checks"] = checks
+    log(json.dumps(out))
+    state["mesh"] = out
+    failures = [name for name, ok in checks.items() if not ok]
+    if failures:
+        raise AssertionError(f"mesh checks failed: {failures}")
+
+
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
-          phase_stats, phase_serve, phase_leiden, phase_workflow, phase_plots)
+          phase_stats, phase_serve, phase_leiden, phase_workflow, phase_plots, phase_mesh)
 
 
 def run(device, scale, seed: int = 0) -> dict:

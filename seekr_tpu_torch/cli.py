@@ -26,9 +26,11 @@ command raises instead of moving to the CPU on its own; the host-only commands
 (adj_pval, pwms, graph, the textplots, visualize_distro, the data tools) hold
 the same rule.  ``doctor`` probes the card ``--device`` names in a subprocess.
 The plots and ``graph`` need matplotlib, seaborn and networkx, which are
-imported only when a command draws.  Not in this port yet, and refused with an
-error that names the slice they come with: ``-dp``/``-kp`` above 1 and the
-multi-host flags (the device mesh).  A bare command prints its help; a bare
+imported only when a command draws.  ``-dp``/``-kp`` build a device mesh in
+this process, of CUDA cards or, with ``--device cpu``, of CPU shards
+(``parallel.mesh``); the multi-host flags (``--coordinator``,
+``--num_processes``, ``--process_id``) come with the port's slice 9 and are
+refused with an error that names it.  A bare command prints its help; a bare
 ``doctor`` runs.
 """
 
@@ -41,7 +43,6 @@ import sys
 LOG2_CHOICES = ["Log2.post", "Log2.pre", "Log2.none"]
 DEVICE_HELP = ("where counting and Pearson run: a torch device such as 'cuda:0' "
                "or 'cpu' (default: the first CUDA card)")
-MESH_SLICE = "the port's multi-GPU slice"
 
 KMER_COUNTS_DOC = """
 Generate the m x 4^k k-mer count matrix of a fasta file: one row per
@@ -352,14 +353,16 @@ def _device(args):
     return resolve_device(args.device)
 
 
-def _refuse_mesh(parser, args, *flags):
-    """Refuse a mesh flag that asks for more than one device or process: a
-    ``*_parallel`` count above 1, or any multi-host bootstrap value."""
-    for flag in flags:
+def _refuse_multi_host(parser, args):
+    """Refuse the multi-host bootstrap flags: a coordinator, a process id, or
+    more than one process."""
+    from seekr_tpu_torch.parallel.mesh import MULTI_HOST
+
+    for flag in ("coordinator", "num_processes", "process_id"):
         value = getattr(args, flag)
-        if value is None or (flag.endswith("_parallel") and value <= 1):
+        if value is None or (flag == "num_processes" and value <= 1):
             continue
-        parser.error(f"--{flag} {value}: the device mesh comes with {MESH_SLICE}")
+        parser.error(f"--{flag} {value}: {MULTI_HOST}")
 
 
 # -- kmer_counts -------------------------------------------------------------
@@ -526,13 +529,11 @@ def console_find_dist(argv=None):
                         help="per-distribution fit timeout in seconds; a "
                              "timed-out fit is skipped like any failed fit.")
     parser.add_argument("-dp", "--data_parallel", default=None, type=int,
-                        help="devices on the mesh 'data' axis (above 1: not in "
-                             "this port yet).")
+                        help="devices on the mesh 'data' axis for the O(m^2) "
+                             "background Pearson.")
     parser.add_argument("-kp", "--kmer_parallel", default=1, type=int,
-                        help="devices on the mesh 'kmer' axis (above 1: not in "
-                             "this port yet).")
+                        help="devices on the mesh 'kmer' axis.")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_mesh(parser, args, "data_parallel", "kmer_parallel")
 
     from seekr_tpu_torch.stats.find_dist import find_dist
 
@@ -541,7 +542,9 @@ def console_find_dist(argv=None):
     find_dist(args.fasta, int(args.kmer), args.log2, models,
               args.subsetting, int(args.subset_size), args.fit_model,
               args.statsmethod, args.progress_bar, args.plotfit, args.outputname,
-              n_jobs=int(args.n_jobs), fit_timeout=args.fit_timeout, device=device)
+              n_jobs=int(args.n_jobs), fit_timeout=args.fit_timeout,
+              data_parallel=args.data_parallel, kmer_parallel=args.kmer_parallel,
+              device=device)
 
 
 # -- find_pval ---------------------------------------------------------------
@@ -589,10 +592,9 @@ def console_find_pval(argv=None):
                              "output artifacts ('auto' streams above 64M cells; "
                              "streamed, nothing is returned, only written).")
     parser.add_argument("-dp", "--data_parallel", default=None, type=int,
-                        help="devices on the mesh 'data' axis (above 1: not in "
-                             "this port yet).")
+                        help="devices on the mesh 'data' axis for the O(m1*m2) "
+                             "Pearson (combines with --stream).")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_mesh(parser, args, "data_parallel")
 
     from seekr_tpu_torch.stats.find_pval import find_pval
 
@@ -602,7 +604,8 @@ def console_find_pval(argv=None):
     find_pval(args.seq1file, args.seq2file, args.mean_path, args.std_path,
               int(args.kmer), fitres, args.log2, int(args.bestfit),
               args.outputname, args.progress_bar, stream=stream,
-              npy_out=args.binary_outfile, device=device)
+              npy_out=args.binary_outfile, data_parallel=args.data_parallel,
+              device=device)
 
 
 # -- adj_pval ----------------------------------------------------------------
@@ -686,10 +689,10 @@ def console_kmer_leiden(argv=None):
                              "above ~2.5B cells, m~50k; the Gephi edges file then "
                              "holds the detected edges).")
     parser.add_argument("-dp", "--data_parallel", default=None, type=int,
-                        help="devices for the similarity GEMM (above 1 not in this "
-                             "port yet).")
+                        help="devices on the mesh 'data' axis for the O(m^2) "
+                             "similarity GEMM (implies the streamed edge "
+                             "extraction).")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_mesh(parser, args, "data_parallel")
 
     from seekr_tpu_torch.graph import kmer_leiden
 
@@ -697,7 +700,8 @@ def console_kmer_leiden(argv=None):
     kmer_leiden(args.fasta, args.mean_path, args.std_path, int(args.kmer), args.algo,
                 float(args.rs), float(args.pearsoncutoff), args.setseed,
                 args.edgecolormethod, float(args.edgethreshold), int(args.labelfontsize),
-                args.plotname, args.csvfile, stream=stream, device=_device(args))
+                args.plotname, args.csvfile, stream=stream,
+                data_parallel=args.data_parallel, device=_device(args))
 
 
 # -- serve / query -----------------------------------------------------------
@@ -744,30 +748,34 @@ def console_serve(argv=None):
     parser.add_argument("--no-coalesce", action="store_true",
                         help="serve each request as its own device batch.")
     parser.add_argument("-dp", "--data_parallel", default=None, type=int,
-                        help="devices of a sharded corpus (above 1: not in this "
-                             "port yet).")
+                        help="shard the target corpus over this many devices "
+                             "(needs -t/--targets).")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-host bootstrap address (not in this port yet).")
+                        help="multi-host bootstrap address (the port's slice 9).")
     parser.add_argument("--num_processes", default=None, type=int,
-                        help="multi-host process count (not in this port yet).")
+                        help="multi-host process count (the port's slice 9).")
     parser.add_argument("--process_id", default=None, type=int,
-                        help="multi-host process id (not in this port yet).")
+                        help="multi-host process id (the port's slice 9).")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_mesh(parser, args, "data_parallel", "coordinator", "num_processes",
-                 "process_id")
+    _refuse_multi_host(parser, args)
+    if (args.data_parallel or 0) > 1 and not args.targets:
+        parser.error("-dp requires -t/--targets: the sharded corpus "
+                     "is the thing being distributed")
     if args.save_corpus and not args.targets:
         parser.error("--save-corpus requires -t/--targets: the snapshot "
                      "is the loaded target corpus")
 
+    from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
     from seekr_tpu_torch.serve import SeekrService, serve_forever
 
     device = _device(args)
+    mesh = build_mesh_from_flags(args.data_parallel, device=device)
     fitres = None
     if args.fitres_file:
         fitres = parse_fitres_csv(args.fitres_file, args.fitres_type)
     svc = SeekrService(args.mean_path, args.std_path, k=int(args.kmer),
                        log2=args.log2, targets=args.targets, fitres=fitres,
-                       coalesce=not args.no_coalesce,
+                       coalesce=not args.no_coalesce, mesh=mesh,
                        mem_budget_bytes=args.mem_budget,
                        grow_quantum=args.grow_quantum, device=device)
     if args.save_corpus:
@@ -912,20 +920,19 @@ def console_pipeline(argv=None):
     parser.add_argument("-lr", "--leiden_resolution", default=1.0,
                         help="resolution for RBConfig/RBER/CPM partitions.")
     parser.add_argument("-dp", "--data_parallel", default=None, type=int,
-                        help="devices on the mesh 'data' axis (above 1: not in this "
-                             "port yet).")
+                        help="devices on the mesh 'data' axis; >1 routes the "
+                             "O(m^2) Pearson stages through the data-sharded "
+                             "streaming GEMM.")
     parser.add_argument("-kp", "--kmer_parallel", default=1, type=int,
-                        help="devices on the mesh 'kmer' axis (above 1: not in this "
-                             "port yet).")
+                        help="devices on the mesh 'kmer' axis.")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-host bootstrap address (not in this port yet).")
+                        help="multi-host bootstrap address (the port's slice 9).")
     parser.add_argument("--num_processes", default=None, type=int,
-                        help="multi-host process count (not in this port yet).")
+                        help="multi-host process count (the port's slice 9).")
     parser.add_argument("--process_id", default=None, type=int,
-                        help="multi-host process id (not in this port yet).")
+                        help="multi-host process id (the port's slice 9).")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_mesh(parser, args, "data_parallel", "kmer_parallel", "coordinator",
-                 "num_processes", "process_id")
+    _refuse_multi_host(parser, args)
 
     from seekr_tpu_torch.models.workflow import run_workflow
     from seekr_tpu_torch.utils.profiler import trace_session
@@ -938,7 +945,9 @@ def console_pipeline(argv=None):
                      seed=None if args.seed is None else int(args.seed),
                      leiden=args.leiden, leiden_cutoff=float(args.leiden_cutoff),
                      leiden_algo=args.leiden_algo,
-                     leiden_resolution=float(args.leiden_resolution), device=device)
+                     leiden_resolution=float(args.leiden_resolution),
+                     data_parallel=args.data_parallel, kmer_parallel=args.kmer_parallel,
+                     device=device)
 
 
 # -- domain_pearson ----------------------------------------------------------

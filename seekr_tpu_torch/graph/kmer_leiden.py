@@ -9,7 +9,8 @@ the Gephi nodes/edges CSVs, written without pandas in the bytes seekr_tpu's
 ``to_csv`` writes, and the spring-layout network plot (``plot_network``;
 matplotlib and networkx are imported when it draws).
 
-Not in this port yet: ``data_parallel`` > 1 (the multi-GPU slice), which raises.
+``data_parallel`` runs the similarity GEMM data-sharded over a device mesh and
+implies the streamed edge extraction, as in seekr_tpu.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import numpy as np
 from seekr_tpu_torch import native
 from seekr_tpu_torch.io.fast_csv import LabeledMatrix, _quote, _shortest_cells
 from seekr_tpu_torch.models.counter import KmerCounter
-from seekr_tpu_torch.models.pearson import pearson
+from seekr_tpu_torch.models.pearson import mirror_upper_inplace, pearson
+from seekr_tpu_torch.ops.pearson import _RowFiller
+from seekr_tpu_torch.utils.device import resolve_device
 
 # Auto-stream cutover (cells of the self-similarity square), far above
 # io.stream.STREAM_CELL_THRESHOLD: streaming changes the artifacts (the Gephi
@@ -38,20 +41,30 @@ _RESOLUTION_ALGOS = {
 
 
 def similarity_graph(inputfile, mean, std, k, pearsoncutoff=0, counter=None,
-                     device=None) -> LabeledMatrix:
+                     mesh=None, device=None) -> LabeledMatrix:
     """Thresholded self-similarity with the headers as labels.
 
     r < pearsoncutoff -> 0; diagonal -> 0 (reference kmer_leiden.py:93-96).
     ``counter`` reuses a KmerCounter already built for the same file.  The
     counts stay on the card into ``pearson``; only the [m, m] matrix comes to
-    the host.
+    the host.  ``mesh`` runs the GEMM data-sharded (the matrix is still
+    gathered on the host, then mirrored to exact symmetry).
     """
     if counter is None:
         counter = KmerCounter(inputfile, mean=mean, std=std, k=k, silent=True,
                               device=device)
     headers = [h[1:] for h in counter.headers]
     counts = counter.get_counts_device()
-    sim = pearson(counts, counts, device=counter.device)
+    if mesh is None:
+        sim = pearson(counts, counts, device=counter.device)
+    else:
+        from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
+
+        # filled in place: collected blocks and a vstack would hold it twice
+        m = int(counts.shape[0])
+        sim = np.empty((m, m), dtype=np.float32)
+        stream_pearson_sharded(mesh, counts, _RowFiller(sim))
+        mirror_upper_inplace(sim)
     sim[sim < pearsoncutoff] = 0
     np.fill_diagonal(sim, 0)
     return LabeledMatrix(sim, headers, headers)
@@ -117,15 +130,20 @@ class _EdgeTiles:
                 np.concatenate(self.w) if self.w else np.empty(0, np.float32))
 
 
-def sparse_similarity_edges(counts, pearsoncutoff=0, block_rows: int = 2048,
+def sparse_similarity_edges(counts, pearsoncutoff=0, mesh=None, block_rows: int = 2048,
                             device=None):
     """(src, dst, weights) of the thresholded self-similarity graph, extracted
-    tile by tile from the blocked GEMM: the [m, m] matrix never exists on the
-    host."""
-    from seekr_tpu_torch.io.stream import stream_pearson
-
+    tile by tile from the blocked GEMM (data-sharded over ``mesh`` when given):
+    the [m, m] matrix never exists on the host."""
     tiles = _EdgeTiles(int(counts.shape[0]), pearsoncutoff)
-    stream_pearson(counts, counts, tiles, block_rows=block_rows, device=device)
+    if mesh is None:
+        from seekr_tpu_torch.io.stream import stream_pearson
+
+        stream_pearson(counts, counts, tiles, block_rows=block_rows, device=device)
+    else:
+        from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
+
+        stream_pearson_sharded(mesh, counts, tiles, block_rows=block_rows)
     return tiles.result()
 
 
@@ -251,8 +269,10 @@ def kmer_leiden(inputfile, mean, std, k, algo="RBERVertexPartition", rs=1.0,
     seekr_tpu's signature plus ``device`` (``None`` = the first CUDA card);
     returns the int32 membership (the reference returns None), or None when
     the norm vectors do not fit ``k``.  Above ``LEIDEN_STREAM_CELL_THRESHOLD``
-    similarity cells, or with ``stream=True``, the thresholded edge set is
-    extracted tile by tile (``sparse_similarity_edges``), the Gephi edges
+    similarity cells, or with ``stream=True`` or ``data_parallel`` (a mesh of
+    that many devices of ``device``'s kind, which shards the GEMM), the
+    thresholded edge set is extracted tile by tile
+    (``sparse_similarity_edges``), the Gephi edges
     file holds the detected edges and the plot is skipped with a message.
     Streamed weights may differ from the dense ones by GEMM-tiling ulps, so a
     pair within an ulp of the cutoff can flip.  ``plotname`` asks for the
@@ -261,23 +281,24 @@ def kmer_leiden(inputfile, mean, std, k, algo="RBERVertexPartition", rs=1.0,
     """
     from seekr_tpu_torch.viz.style import check_norm_compat
 
-    if (data_parallel or 1) > 1:
-        raise NotImplementedError(
-            "kmer_leiden(data_parallel > 1): the device mesh comes with the port's "
-            "multi-GPU slice")
+    from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
+
     # the reference's intended check (upstream kmer_leiden.py:75 has the same
     # operator-precedence bug as find_pval.py:76)
     if not check_norm_compat(mean, std, k, "Leiden community is calculated or plotted"):
         return None
 
+    device = resolve_device(device)
+    mesh = build_mesh_from_flags(data_parallel, device=device)
     counter = KmerCounter(inputfile, mean=mean, std=std, k=k, silent=True, device=device)
     m = len(counter.headers)
-    do_stream = stream if stream is not None else m * m > LEIDEN_STREAM_CELL_THRESHOLD
+    do_stream = (stream if stream is not None
+                 else m * m > LEIDEN_STREAM_CELL_THRESHOLD or mesh is not None)
 
     if do_stream:
         names = [h[1:] for h in counter.headers]
         src, dst, w = sparse_similarity_edges(counter.get_counts_device(), pearsoncutoff,
-                                              device=counter.device)
+                                              mesh=mesh, device=counter.device)
         membership = _run_leiden(src, dst, w, m, algo, rs, setseed)
         if plotname:
             print(f"kmer_leiden: streamed mode at m={m} skips the "
@@ -288,7 +309,8 @@ def kmer_leiden(inputfile, mean, std, k, algo="RBERVertexPartition", rs=1.0,
             export_gephi_csv_edges(names, membership, src, dst, w, csvfile)
         return membership
 
-    graph = similarity_graph(inputfile, mean, std, k, pearsoncutoff, counter=counter)
+    graph = similarity_graph(inputfile, mean, std, k, pearsoncutoff, counter=counter,
+                             mesh=mesh)
     membership = leiden_membership(graph, algo=algo, rs=rs, setseed=setseed)
     if plotname:
         plot_network(graph, membership, plotname, edgecolormethod=edgecolormethod,

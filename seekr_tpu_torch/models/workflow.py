@@ -15,9 +15,11 @@ each device stage feeding the next, and writes the artifacts once at the end:
   5. empirical p-values (sorted null + searchsorted; float64, host)
   6. multiple-test correction (host), and optionally Leiden communities
 
-Multi-device and multi-host runs (``data_parallel``/``kmer_parallel`` > 1, the
-bootstrap arguments) come with the port's multi-GPU slice and raise.  One
-process writes every artifact.
+``data_parallel``/``kmer_parallel`` build a device mesh in this process and
+route both Pearson stages through the data-sharded streamed GEMM
+(``parallel.dist.stream_pearson_sharded``); the multi-host arguments
+(``coordinator``, ``num_processes`` > 1) come with the port's slice 9 and raise.
+One process writes every artifact.
 
 Scale: the p-value and corrected matrices are held in memory.  Above ~50k
 transcripts use the streamed chain instead (``find_pval --stream -bo
@@ -31,38 +33,35 @@ import os
 import numpy as np
 
 from seekr_tpu_torch.io.fast_csv import LabeledMatrix, _quote, write_labeled_csv
+from seekr_tpu_torch.io.stream import ArrayCollector
 from seekr_tpu_torch.models.counter import KmerCounter
 from seekr_tpu_torch.models.pearson import mirror_upper_inplace, pearson
 from seekr_tpu_torch.ops.ecdf import empirical_pvals
 from seekr_tpu_torch.ops.normalize import normalize_counts
 from seekr_tpu_torch.ops.pearson import pearson_blocked
+from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
 from seekr_tpu_torch.stats.adj_pval import adj_pval
 from seekr_tpu_torch.utils.adj import triu_values
 from seekr_tpu_torch.utils.device import resolve_device
 from seekr_tpu_torch.utils.logging import stage_timer
 
-MESH_SLICE = "the port's multi-GPU slice"
+def _self_or_cross_pearson(c1, c2, device, mesh=None):
+    """Self or cross Pearson: on ``mesh`` the data-sharded streamed GEMM, else
+    the blocked GEMM for a self comparison and ``pearson`` for a cross one.
+    A self result is mirrored to exact symmetry (the downstream 5-decimal
+    symmetry test must see the upper-triangle case)."""
+    if mesh is not None:
+        from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
 
-
-def _refuse_mesh(data_parallel, kmer_parallel, coordinator, num_processes, process_id):
-    asked = {"data_parallel": data_parallel if (data_parallel or 1) > 1 else None,
-             "kmer_parallel": kmer_parallel if (kmer_parallel or 1) > 1 else None,
-             "coordinator": coordinator, "num_processes": num_processes,
-             "process_id": process_id}
-    asked = {name: value for name, value in asked.items() if value is not None}
-    if asked:
-        raise NotImplementedError(f"{asked}: the device mesh and multi-host runs come "
-                                  f"with {MESH_SLICE}")
-
-
-def _self_or_cross_pearson(c1, c2, device):
-    """The blocked GEMM for a self comparison, mirrored to exact symmetry (the
-    downstream 5-decimal symmetry test must see the upper-triangle case), else
-    ``pearson``."""
-    if c2 is not c1:
+        out = ArrayCollector()
+        stream_pearson_sharded(mesh, c1, out, counts2=None if c2 is c1 else c2)
+        sim = out.result()
+    elif c2 is not c1:
         return pearson(c1, c2, device=device)
-    sim = pearson_blocked(c1, c1, device=device)
-    mirror_upper_inplace(sim)
+    else:
+        sim = pearson_blocked(c1, c1, device=device)
+    if c2 is c1:
+        mirror_upper_inplace(sim)
     return sim
 
 
@@ -95,8 +94,10 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
     if background is None:
         raise ValueError("a background fasta is required (norm vectors + "
                          "empirical null)")
-    _refuse_mesh(data_parallel, kmer_parallel, coordinator, num_processes, process_id)
     dev = resolve_device(device)
+    mesh = build_mesh_from_flags(data_parallel, kmer_parallel, coordinator=coordinator,
+                                 num_processes=num_processes, process_id=process_id,
+                                 device=dev)
     seq2file = seq2file or seq1file
     # './q.fa' and 'q.fa' (or a symlink) are still a self comparison
     if os.path.realpath(seq2file) == os.path.realpath(seq1file):
@@ -122,7 +123,7 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
         # find_dist does; the counts stay on the card into the GEMM
         bkg_dev, _, _ = normalize_counts(raw, log2_mode="Log2.post", mean=mean, std=std)
         del raw
-        sim_bkg = _self_or_cross_pearson(bkg_dev, bkg_dev, dev)
+        sim_bkg = _self_or_cross_pearson(bkg_dev, bkg_dev, dev, mesh)
         del bkg_dev
         with stage_timer("workflow/null_sample"):
             null_sample = triu_values(sim_bkg)
@@ -150,7 +151,7 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
 
     with stage_timer("workflow/pearson", items=len(headers1) * len(headers2),
                      unit="cells"):
-        sim = _self_or_cross_pearson(c1_dev, c2_dev, dev)
+        sim = _self_or_cross_pearson(c1_dev, c2_dev, dev, mesh)
         del c1_dev, c2_dev
 
     with stage_timer("workflow/pvalues"):

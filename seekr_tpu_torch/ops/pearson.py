@@ -43,10 +43,28 @@ def _row_standardize(c: torch.Tensor) -> torch.Tensor:
     return c.div_(c.std(dim=feat, keepdim=True, correction=0))  # c is ours: in place
 
 
+# Columns of one float32 partial product.  A longer contraction is summed in
+# pieces of this width, the k = 6 width: on an H100, one cuBLAS product over the
+# 262,144 columns of k = 9 was 6.5e-4 from float64, outside the 1e-4 budget
+# (chip_smoke.py phase 11 measures both ways).
+GEMM_CHUNK = 4096
+
+
+def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b.T`` in float32, contracted in ``GEMM_CHUNK``-column pieces."""
+    with pearson_precision():
+        if a.shape[1] <= GEMM_CHUNK:
+            return a @ b.T
+        out = None
+        for c in range(0, a.shape[1], GEMM_CHUNK):
+            piece = a[:, c:c + GEMM_CHUNK] @ b[:, c:c + GEMM_CHUNK].T
+            out = piece if out is None else out.add_(piece)
+        return out
+
+
 def matmul_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.T / n_cols`` in float32 -- the one Pearson GEMM recipe."""
-    with pearson_precision():
-        return divide(a @ b.T, a.shape[1])
+    return divide(gram(a, b), a.shape[1])
 
 
 def pearson_graph(c: torch.Tensor) -> torch.Tensor:

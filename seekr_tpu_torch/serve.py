@@ -22,10 +22,12 @@ newline-delimited JSON protocol of seekr_tpu (same requests, same responses):
         (only under serve_forever(..., artifact_dir=DIR), confined to DIR)
     {"op": "ping" | "add_targets" | "save_corpus" | "shutdown"}
 
-The socket is created owner-only (0600).  The mesh-sharded corpus and pod
-serving of seekr_tpu come with the port's multi-GPU slice: ``mesh=`` raises.
-torch is imported only where the card is used, so a process that only calls
-``request`` never imports it.
+The socket is created owner-only (0600).  ``mesh=`` (a ``parallel.mesh.Mesh``)
+row-shards the standardized targets over every mesh device and selects the
+top-k in two stages (``parallel.dist.ShardedScorer``); pod serving across
+processes (``follow``) comes with the port's slice 9.  torch is imported only
+where the card is used, so a process that only calls ``request`` never imports
+it.
 """
 
 from __future__ import annotations
@@ -134,29 +136,33 @@ class SeekrService:
         queries are scored against these (default: against the query batch
         itself).  fitres: find_dist output (fitted tuples or a raw r-value
         array) enabling "pvals".  coalesce: merge requests that arrive while
-        the card is busy into one device batch (targets mode only).
+        the card is busy into one device batch (targets mode only).  mesh: a
+        ``parallel.mesh.Mesh``; the standardized targets are row-sharded over
+        every mesh device (~T/D rows each) and top-k is a two-stage selection
+        (``parallel.dist.make_sharded_scorer``); it needs targets.
 
-        mem_budget_bytes: cap on the resident corpus' device bytes;
-        ``add_targets`` past it is refused.  Default: half the card's memory
-        (SEEKR_TPU_CORPUS_BUDGET overrides; 0 disables the cap; no default
-        cap on the CPU).
+        mem_budget_bytes: cap on the resident corpus' device bytes (per device
+        on a mesh); ``add_targets`` past it is refused.  Default: half the
+        card's memory (SEEKR_TPU_CORPUS_BUDGET overrides; 0 disables the cap;
+        no default cap on the CPU).
 
         grow_quantum: the resident corpus is padded with zero rows to a
         multiple of this many rows from the initial load, so a grow within the
         quantum writes rows in place and changes no shape: cuBLAS keeps its
         kernel, and existing targets' scores stay bitwise the same.  0/1
-        disables it.  device: where the service runs (``None`` = the first
-        CUDA card)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving (a sharded corpus) comes with the port's multi-GPU "
-                "slice; use seekr_tpu.serve for it meanwhile")
+        disables it.  device: where queries are counted and normalized
+        (``None`` = the mesh's first device with a mesh, else the first CUDA
+        card)."""
         import torch
 
         from seekr_tpu_torch.ops.pearson import standardize_rows
         from seekr_tpu_torch.utils.device import resolve_device
 
-        self.device = resolve_device(device)
+        if mesh is not None and targets is None:
+            raise ValueError("mesh serving requires targets: the sharded "
+                             "corpus IS the thing being distributed")
+        self.device = resolve_device(mesh.first if device is None and mesh is not None
+                                     else device)
         self.k = int(k)
         self.log2 = log2
         self.mean = np.load(mean) if isinstance(mean, str) else np.asarray(mean)
@@ -202,6 +208,7 @@ class SeekrService:
         # skips their re-standardization (bitwise the same GEMM operand)
         self.target_names = None
         self._targets_std = None
+        self._scorer = None
         self._has_targets = targets is not None
         self._n_targets = 0
         if targets is not None:
@@ -217,12 +224,22 @@ class SeekrService:
                                         device=self.device)
                 self.target_names = [f"t{i}" for i in range(len(targets))]
             self._n_targets = len(self.target_names)
-            self._targets_std = self._quantize_pad(
-                torch.as_tensor(tstd, device=self.device))
+            if mesh is not None:
+                from seekr_tpu_torch.parallel.dist import make_sharded_scorer
+
+                # one host crossing at load: the scorer lays out its shards from
+                # a host copy and keeps it as the re-shard shadow for
+                # add_targets (host RAM, not device memory)
+                self._scorer = make_sharded_scorer(mesh, tstd,
+                                                   row_quantum=self.grow_quantum)
+            else:
+                self._targets_std = self._quantize_pad(
+                    torch.as_tensor(tstd, device=self.device))
             over = self._corpus_bytes_over(self._resident_rows())
             if over:
                 print(f"seekr_tpu_torch serve: WARNING {over} -- queries may run "
-                      "out of device memory; raise mem_budget_bytes", flush=True)
+                      "out of device memory; raise mem_budget_bytes or shard over "
+                      "a mesh (-dp N)", flush=True)
 
     def _quantize_pad(self, tstd):
         """Pad a standardized target matrix with zero rows up to the next
@@ -237,18 +254,24 @@ class SeekrService:
 
     def _resident_rows(self) -> int:
         """Resident corpus rows, quantization pad included."""
+        if self._scorer is not None:
+            return self._scorer.t_loc * self._scorer.n_dev
         return int(self._targets_std.shape[0]) if self._targets_std is not None else 0
 
     def _corpus_bytes_over(self, rows_padded: int):
-        """Budget check of a padded row count: a message with the measured
-        numbers when over ``mem_budget_bytes``, None when within (or no cap)."""
+        """Budget check of a padded row count (per device on a mesh): a message
+        with the measured numbers when over ``mem_budget_bytes``, None when
+        within (or no cap)."""
         if self.mem_budget_bytes is None:
             return None
-        need = rows_padded * (4 ** self.k) * 4  # float32
+        n_dev = self._scorer.n_dev if self._scorer is not None else 1
+        per_dev_rows = -(-rows_padded // n_dev)
+        need = per_dev_rows * (4 ** self.k) * 4  # float32
         if need <= self.mem_budget_bytes:
             return None
         return (f"resident corpus would need {need:,} bytes/device "
-                f"({rows_padded:,} rows x {4 ** self.k:,} cols x 4 B), over "
+                f"({per_dev_rows:,} rows x {4 ** self.k:,} cols x 4 B"
+                f"{f' over {n_dev} devices' if n_dev > 1 else ''}), over "
                 f"the {self.mem_budget_bytes:,}-byte corpus budget")
 
     def _load_corpus(self, path: str):
@@ -298,7 +321,9 @@ class SeekrService:
         if not path.endswith(".npz"):
             raise ValueError("corpus snapshot path must end in .npz")
         with self._lock:
-            host = self._targets_std[:self._n_targets].cpu().numpy()
+            # only the real rows: the mesh's host shadow is unpadded
+            host = (self._scorer.host_corpus if self._scorer is not None
+                    else self._targets_std[:self._n_targets].cpu().numpy())
             names = np.asarray(self.target_names)
         _atomic_write(
             path,
@@ -309,8 +334,15 @@ class SeekrService:
             ".npz.tmp")
         return path
 
+    def follow(self) -> None:
+        """Follower entry point of pod serving (one process per host), which
+        comes with the port's slice 9: raises."""
+        from seekr_tpu_torch.parallel.mesh import MULTI_HOST
+
+        raise NotImplementedError(f"SeekrService.follow: {MULTI_HOST}")
+
     def stop_followers(self) -> None:
-        """No-op: pod followers come with the port's multi-GPU slice."""
+        """No-op: a mesh in one process has no followers to release."""
 
     def _counter(self, infasta=None):
         from seekr_tpu_torch.models.counter import KmerCounter
@@ -392,7 +424,11 @@ class SeekrService:
                 sim_dev = self._sim_device(qc)
                 sim_dev[:1, :1].cpu()
                 if topk:
-                    self._topk_device(sim_dev, q, topk)
+                    if self._scorer is not None:  # topk-only and sim+topk
+                        self._mesh_topk(qc, q, topk)
+                        self._mesh_topk(qc, q, topk, with_sim=True)
+                    else:
+                        self._topk_device(sim_dev, q, topk)
         if self.coalesce and self._has_targets:
             # the largest merge is the largest batch ever warmed (a later
             # warmup with a larger max_batch raises the cap), never above the
@@ -428,6 +464,9 @@ class SeekrService:
         existing scores stay bitwise), else into a new tensor padded to the
         next quantum.  Existing indices never change.  A grow past
         ``mem_budget_bytes`` is refused before anything is uploaded.
+
+        On a mesh the scorer re-shards its host shadow with the new rows (a
+        grow within the quantum keeps every shard's shape).
 
         Normalization is batch-local under Log2.post (the |min| shift sees the
         rows counted together), as if the new fasta had its own kmer_counts
@@ -465,14 +504,21 @@ class SeekrService:
                 new_names = [f"t{i}" for i in range(self._n_targets,
                                                     self._n_targets + added)]
             new_total = self._n_targets + added
-            prospective = -(-new_total // self.grow_quantum) * self.grow_quantum
+            prospective = (self._scorer.prospective_rows(new_total)
+                           if self._scorer is not None
+                           else -(-new_total // self.grow_quantum) * self.grow_quantum)
             over = self._corpus_bytes_over(prospective)
             if over:
                 raise ValueError(
                     f"add_targets refused: {over}.  The resident corpus "
                     f"stays at {self._n_targets} targets; raise "
-                    "mem_budget_bytes / SEEKR_TPU_CORPUS_BUDGET.")
-            if new_total <= self._resident_rows():
+                    "mem_budget_bytes / SEEKR_TPU_CORPUS_BUDGET or shard "
+                    "over a larger mesh (-dp N).")
+            if self._scorer is not None:
+                # the scorer drops its old shards before the grown corpus
+                # uploads and restores them if the upload fails
+                self._scorer.grow(new_std)
+            elif new_total <= self._resident_rows():
                 self._targets_std[self._n_targets:new_total] = new_std
             else:
                 parts = [self._targets_std[:self._n_targets], new_std]
@@ -492,7 +538,24 @@ class SeekrService:
 
         if not self._has_targets:
             return pearson_device(qc, qc, device=self.device)
+        if self._scorer is not None:  # the column shards, put together here
+            return self._scorer.sim(qc).gather(self.device)
         return pearson_against_standardized(qc, self._targets_std, device=self.device)
+
+    def _mesh_topk(self, qc, q: int, topk: int, with_sim: bool = False):
+        """Two-stage top-k over the mesh-sharded corpus, straight from the
+        normalized counts: the full [Q, T] row never exists on one device.
+        Runs at the next power of two >= topk (then sliced), as
+        ``_topk_device``.  With ``with_sim`` the similarity comes from the same
+        shard-local GEMM, as ``(sim_dev, vals, idx)``."""
+        n_req = max(1, min(int(topk), self._n_targets))
+        n_run = min(_next_pow2(n_req), self._n_targets)
+        if with_sim:
+            sim, vals, idx = self._scorer.sim_and_topk(qc, n_run)
+        else:
+            vals, idx = self._scorer.topk(qc, n_run)
+        out = (vals[:q, :n_req].cpu().numpy(), idx[:q, :n_req].cpu().numpy())
+        return (sim.gather(self.device),) + out if with_sim else out
 
     def _topk_device(self, sim_dev, q: int, topk: int):
         """Top-``topk`` targets of each real query row, selected on the card;
@@ -631,12 +694,22 @@ class SeekrService:
         out = {"m": q, "n": n}
         need_full = bool(want & {"sim", "pvals"})
         sim_dev = None
-        if "topk" in want or need_full:
-            sim_dev = self._sim_device(qc)
         if "topk" in want:
-            out["topk_sim"], out["topk_idx"] = self._topk_device(sim_dev, q, topk)
+            if self._scorer is not None:
+                # the mesh selects shard by shard; a request wanting both
+                # products rides one shard-local GEMM
+                if need_full:
+                    sim_dev, vals, idx = self._mesh_topk(qc, q, topk, with_sim=True)
+                else:
+                    vals, idx = self._mesh_topk(qc, q, topk)
+            else:
+                sim_dev = self._sim_device(qc)
+                vals, idx = self._topk_device(sim_dev, q, topk)
+            out["topk_sim"], out["topk_idx"] = vals, idx
             if "topk_pvals" in want:
                 out["topk_pvals"] = self._pvals(out["topk_sim"])
+        elif need_full:
+            sim_dev = self._sim_device(qc)
         if need_full:
             sim = sim_dev[:q, :n].cpu().numpy()
             if "sim" in want:
@@ -685,13 +758,22 @@ class SeekrService:
             t_cols = self._n_targets
             topk_items = [it for it in batch if "topk" in it.want]
             need_full = any(it.want & {"sim", "pvals"} for it in batch)
-            sim_dev = self._sim_device(counts) if topk_items or need_full else None
-            vals = idx = None
+            sim_dev = vals = idx = None
             if topk_items:
                 # one top-k at the largest size asked for; smaller requests
                 # take a prefix of the sorted row
                 n_max = max(max(1, min(it.topk, t_cols)) for it in topk_items)
-                vals, idx = self._topk_device(sim_dev, len(padded), n_max)
+                if self._scorer is not None:
+                    if need_full:
+                        sim_dev, vals, idx = self._mesh_topk(counts, len(padded), n_max,
+                                                             with_sim=True)
+                    else:
+                        vals, idx = self._mesh_topk(counts, len(padded), n_max)
+                else:
+                    sim_dev = self._sim_device(counts)
+                    vals, idx = self._topk_device(sim_dev, len(padded), n_max)
+            elif need_full:
+                sim_dev = self._sim_device(counts)
             sim_np = sim_dev[:, :t_cols].cpu().numpy() if need_full else None
             for item, (start, ln) in zip(batch, spans):
                 try:

@@ -11,9 +11,9 @@ stay on the host: they iterate over up to ~100 distributions on a <=100k-value
 vector.
 
 ``plot_fits`` draws the fitted PDFs over the data's histogram (``plotfit``;
-matplotlib is imported when it draws).  Not in this port yet: the mesh
-arguments (``data_parallel``/``kmer_parallel`` > 1, the multi-GPU slice), which
-raise instead of being ignored.  Documented differences from the reference
+matplotlib is imported when it draws).  ``data_parallel``/``kmer_parallel``
+run the background Pearson data-sharded over a device mesh
+(``parallel.dist.stream_pearson_sharded``).  Documented differences from the reference
 are seekr_tpu's: ``inputseq='default'`` raises when the bundled mouse vM25
 fasta is absent (it is absent upstream too), and fits can run in host
 processes (``n_jobs``).
@@ -121,27 +121,33 @@ def _background_counts(inputseq, k_mer=4, log2="Log2.post",
     return counter.get_counts_device()
 
 
-def similarity_triu(counts, block_rows: int = 4096, device=None) -> np.ndarray:
+def similarity_triu(counts, mesh=None, block_rows: int = 4096, device=None) -> np.ndarray:
     """Strict upper triangle of the self-Pearson, reduced block by block.
 
-    Blocks stream off the device GEMM into ``io.stream.TriuCollector``, which
-    keeps each row's j > i tail: the values of
-    ``triu_values(pearson(counts, counts))`` (seekr/find_dist.py:160-163)
-    without the [m, m] square on the host.
+    Blocks stream off the device GEMM (data-sharded over ``mesh`` when given)
+    into ``io.stream.TriuCollector``, which keeps each row's j > i tail: the
+    values of ``triu_values(pearson(counts, counts))``
+    (seekr/find_dist.py:160-163) without the [m, m] square on the host.
     """
     from seekr_tpu_torch.io.stream import TriuCollector, stream_pearson
 
     w = TriuCollector(int(counts.shape[0]))
-    stream_pearson(counts, counts, w, block_rows=block_rows, device=device)
+    if mesh is None:
+        stream_pearson(counts, counts, w, block_rows=block_rows, device=device)
+    else:
+        from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
+
+        stream_pearson_sharded(mesh, counts, w, block_rows=block_rows)
     return w.result()
 
 
 def background_similarity(inputseq, k_mer=4, log2="Log2.post",
-                          save_norm_prefix="bkg", device=None):
-    """Counts + self-Pearson of a background fasta, upper triangle flattened."""
+                          save_norm_prefix="bkg", mesh=None, device=None):
+    """Counts + self-Pearson of a background fasta, upper triangle flattened;
+    with ``mesh`` the all-pairs GEMM runs data-sharded over its devices."""
     counts = _background_counts(inputseq, k_mer=k_mer, log2=log2,
                                 save_norm_prefix=save_norm_prefix, device=device)
-    return similarity_triu(counts, device=device)
+    return similarity_triu(counts, mesh=mesh, device=device)
 
 
 def sample_triu_pairs(counts, subset_size: int, device=None) -> np.ndarray:
@@ -348,14 +354,14 @@ def find_dist(inputseq="default", k_mer=4, log2="Log2.post", models="common10",
     ``exact_subsample_max_pool`` the subsample comes from index sampling + a
     device gather-dot of only the sampled pairs.  ``device``: where counting
     and Pearson run (``None`` = the first CUDA card).
-    ``data_parallel``/``kmer_parallel`` > 1 raise: the mesh comes with a later
-    slice of the port.
+    ``data_parallel``/``kmer_parallel`` run the O(m^2) background Pearson
+    data-sharded over a mesh of that many devices of ``device``'s kind
+    (``parallel.mesh.build_mesh_from_flags``).
     """
-    if (data_parallel or 1) > 1 or (kmer_parallel or 1) > 1:
-        raise NotImplementedError(
-            "find_dist(data_parallel/kmer_parallel > 1): the device mesh comes "
-            "with the port's multi-GPU slice")
+    from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
+
     device = resolve_device(device)
+    mesh = build_mesh_from_flags(data_parallel, kmer_parallel, device=device)
     if inputseq == "default":
         bundled = os.path.normpath(os.path.join(
             os.path.dirname(os.path.realpath(__file__)), "..", "data",
@@ -381,7 +387,7 @@ def find_dist(inputseq="default", k_mer=4, log2="Log2.post", models="common10",
         # bounded-memory regime: the pool is never materialized
         sim_triu = sample_triu_pairs(counts, subset_size, device=device)
     else:
-        sim_triu = similarity_triu(counts, device=device)
+        sim_triu = similarity_triu(counts, mesh=mesh, device=device)
         if subsetting:
             if len(sim_triu) > subset_size:
                 sim_triu = np.random.choice(sim_triu, size=subset_size,

@@ -17,7 +17,8 @@ per-cell p-values on the host from either a fitted scipy distribution
 The result is a ``LabeledMatrix`` (rows = seq1 headers, columns = seq2
 headers) where the reference returns a DataFrame.  Past
 ``STREAM_CELL_THRESHOLD`` cells with an output path, the matrix is streamed
-block by block into the artifacts and never exists whole.
+block by block into the artifacts and never exists whole.  ``data_parallel``
+runs the Pearson data-sharded over a device mesh (``parallel``).
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ import numpy as np
 import torch
 
 from seekr_tpu_torch.io.fast_csv import LabeledMatrix
-from seekr_tpu_torch.io.stream import (STREAM_CELL_THRESHOLD, StreamingCsvWriter,
-                                       StreamingNpyWriter, stream_pearson)
+from seekr_tpu_torch.io.stream import (STREAM_CELL_THRESHOLD, ArrayCollector,
+                                       StreamingCsvWriter, StreamingNpyWriter,
+                                       stream_pearson)
 from seekr_tpu_torch.models.counter import KmerCounter
-from seekr_tpu_torch.models.pearson import pearson
+from seekr_tpu_torch.models.pearson import mirror_upper_inplace, pearson
 from seekr_tpu_torch.ops.ecdf import SortedBackground
 from seekr_tpu_torch.utils.device import resolve_device
 
@@ -150,14 +152,14 @@ def find_pval(seq1file, seq2file, mean_path, std_path, k_mer, fitres,
     ``STREAM_CELL_THRESHOLD`` cells when an artifact path is given); streamed,
     the CSV (``outputname``) and .npy (``npy_out``) are written block by block
     and None is returned.  ``device``: where counting and Pearson run
-    (``None`` = the first CUDA card).  ``data_parallel`` > 1 raises: the mesh
-    comes with the port's multi-GPU slice.
+    (``None`` = the first CUDA card).  ``data_parallel`` runs the O(m1*m2)
+    Pearson data-sharded over a mesh of that many devices of ``device``'s kind,
+    streamed or in memory; a self comparison is mirrored to exact symmetry.
     """
-    if (data_parallel or 1) > 1:
-        raise NotImplementedError(
-            "find_pval(data_parallel > 1): the device mesh comes with the "
-            "port's multi-GPU slice")
+    from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
+
     device = resolve_device(device)
+    mesh = build_mesh_from_flags(data_parallel, device=device)
     meanfile = np.load(mean_path)
     stdfile = np.load(std_path)
     if len(meanfile) != 4 ** k_mer or len(stdfile) != 4 ** k_mer:
@@ -209,9 +211,21 @@ def find_pval(seq1file, seq2file, mean_path, std_path, k_mer, fitres,
                          "pass outputname= (csv) and/or npy_out= (.npy)")
     if do_stream:
         return _stream_pvals(c1, c2, pval_fn, header1, header2,
-                             outputname, npy_out, stream_block_rows, device)
+                             outputname, npy_out, stream_block_rows, device, mesh)
 
-    p_values = pval_fn(pearson(c1, c2, device=device))
+    if mesh is None:
+        sim = pearson(c1, c2, device=device)
+    else:
+        from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
+
+        coll = ArrayCollector()
+        # counts2=None on self: one standardize pass, one copy on the mesh
+        stream_pearson_sharded(mesh, c1, coll, counts2=None if c2 is c1 else c2,
+                               block_rows=stream_block_rows)
+        sim = coll.result()
+        if c2 is c1:
+            mirror_upper_inplace(sim)  # exact symmetry, as the single-device path
+    p_values = pval_fn(sim)
     if npy_out:
         np.save(npy_out, p_values)
     pvals = LabeledMatrix(p_values, header1, header2)
@@ -234,11 +248,12 @@ class _PvalBlocks:
 
 
 def _stream_pvals(c1, c2, pval_fn, header1, header2, outputname, npy_out,
-                  block_rows, device):
+                  block_rows, device, mesh=None):
     """Block-wise sim -> p-values -> append: the [m1, m2] matrix never exists.
 
     Peak host memory is one [block_rows, m2] block; the artifacts' bytes are
-    the in-memory path's.
+    the in-memory path's.  With ``mesh`` the blocks come off the data-sharded
+    GEMM.
     """
     m1, m2 = len(header1), len(header2)
     sinks = []
@@ -250,8 +265,14 @@ def _stream_pvals(c1, c2, pval_fn, header1, header2, outputname, npy_out,
                                             row_labels=header1, fmt="%s"))
         if npy_out:
             sinks.append(StreamingNpyWriter(npy_out, (m1, m2), np.float32))
-        stream_pearson(c1, c2, _PvalBlocks(pval_fn, sinks), block_rows=block_rows,
-                       device=device)
+        if mesh is None:
+            stream_pearson(c1, c2, _PvalBlocks(pval_fn, sinks), block_rows=block_rows,
+                           device=device)
+        else:
+            from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
+
+            stream_pearson_sharded(mesh, c1, _PvalBlocks(pval_fn, sinks),
+                                   counts2=None if c2 is c1 else c2, block_rows=block_rows)
         paths = []
         for s in sinks:
             s.close()

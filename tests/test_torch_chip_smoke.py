@@ -60,6 +60,11 @@ def test_phases_rehearse_on_cpu():
     assert plots["pdist_forced_to_device"] and plots["help_sections"] == 25
     assert plots["column_linkage_rows"] == 4 ** chip_smoke.TINY.leiden_k - 1
     assert len(plots["drawing"]["drawn"]) + len(plots["drawing"]["raised"]) == 10
+    # phase 11 ran the mesh paths on four CPU shards and held every check
+    mesh = state["mesh"]
+    assert mesh["checks"] and all(mesh["checks"].values())
+    assert (mesh["cards"], mesh["shards"]) == (0, 4) and mesh["cli_dp"] == "-dp 4 ran"
+    assert mesh["kmer_axis"]["k"] == 9 and mesh["long_sequence"]["bases"] == 20_000
 
 
 def test_direct_bh_is_benjamini_hochberg():
@@ -190,3 +195,17 @@ def test_plot_phase_helpers():
                                              [np.nan, 0.25, 0]]))
     assert err["same_nan"] and err["within_rtol_1e-4_atol_1e-5"]
     assert abs(err["max_abs"] - 2e-5) < 1e-12
+
+
+def test_data_parallel_on_shards_resolves_to_one_device_and_restores():
+    from seekr_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.build_mesh_from_flags
+    with chip_smoke.data_parallel_on_shards(1):
+        mesh = mesh_mod.build_mesh_from_flags(4, device=torch.device("cpu"))
+        assert mesh.devices.shape == (4, 1) and mesh_mod.build_mesh_from_flags(None) is None
+        assert mesh_mod.build_mesh_from_flags(None, 2, device="cpu").devices.shape == (1, 2)
+    assert mesh_mod.build_mesh_from_flags is real
+    with chip_smoke.data_parallel_on_shards(4):  # enough cards: the library's own rule
+        assert mesh_mod.build_mesh_from_flags is real
+    assert chip_smoke.mesh_devices(torch.device("cpu")) == ([torch.device("cpu")] * 4, 0)

@@ -149,16 +149,11 @@ def test_stats_chain(work, capsys):
 
 
 @pytest.mark.parametrize("argv,slice_name", [
-    (["pipeline", "q.fa", "-b", "b.fa", "-dp", "2"], "multi-GPU slice"),
-    (["pipeline", "q.fa", "-b", "b.fa", "-kp", "2"], "multi-GPU slice"),
-    (["pipeline", "q.fa", "-b", "b.fa", "--coordinator", "h:1", "--num_processes", "2",
-      "--process_id", "0"], "multi-GPU slice"),
-    (["find_dist", "b.fa", "-dp", "2"], "multi-GPU slice"),
-    (["find_dist", "b.fa", "-kp", "4"], "multi-GPU slice"),
-    (["find_dist", "b.fa", "-fm", "-pf", "plot", "-dp", "3"], "multi-GPU slice"),
-    (["find_pval", "a", "b", "m", "s", "3", "f", "-dp", "2"], "multi-GPU slice"),
-    (["kmer_leiden", "a.fa", "m", "s", "3", "-pn", "net", "-dp", "4"], "multi-GPU slice"),
-    (["kmer_leiden", "a.fa", "m", "s", "3", "-dp", "2"], "multi-GPU slice"),
+    (["pipeline", "q.fa", "-b", "b.fa", "--coordinator", "h:1"], "slice 9"),
+    (["pipeline", "q.fa", "-b", "b.fa", "--num_processes", "2"], "slice 9"),
+    (["pipeline", "q.fa", "-b", "b.fa", "--process_id", "0"], "slice 9"),
+    (["pipeline", "q.fa", "-b", "b.fa", "-dp", "2", "--coordinator", "h:1",
+      "--num_processes", "2", "--process_id", "0"], "slice 9"),
 ])
 def test_later_slices_are_refused(argv, slice_name, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -176,7 +171,7 @@ def test_commands_need_a_card_unless_cpu_is_asked(example_fa, work, monkeypatch,
         cli.main(["adj_pval", "p.csv", "fdr_bh"])
 
 
-@pytest.mark.parametrize("stream", ["off", "on"])
+@pytest.mark.parametrize("stream", ["off", "on", "mesh"])
 def test_kmer_leiden_files_match(work, stream):
     # 5 families of 8: each member its founder with 10% of its bases substituted
     rng = np.random.default_rng(11)
@@ -192,13 +187,55 @@ def test_kmer_leiden_files_match(work, stream):
             seqs.append("".join(letters[s]))
     write_fasta("c.fa", names, seqs)
     cli.main(["norm_vectors", "c.fa", "-k", "4", "-mv", "mean.npy", "-sv", "std.npy"] + CPU)
+    # -dp: a mesh of 4 (seekr_tpu's virtual devices, the port's CPU shards),
+    # which implies the streamed edges
+    flags = ["-dp", "4"] if stream == "mesh" else ["--stream", stream]
     both(["kmer_leiden", "c.fa", "mean.npy", "std.npy", "4", "-pco", "0.2", "-sd",
-          "--stream", stream, "-cf", "{out}"])
+          "-cf", "{out}"] + flags)
     assert (work / "t_nodes_leiden.csv").read_bytes() == (work / "j_nodes_leiden.csv").read_bytes()
     t, j = pd.read_csv("t_edges_leiden.csv"), pd.read_csv("j_edges_leiden.csv")
     assert t[["Source", "Target"]].equals(j[["Source", "Target"]]) and len(t) > 0
     # the weights are the two float32 GEMMs' values, XLA's and torch's
     np.testing.assert_allclose(t["Weight"], j["Weight"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mesh", [["-dp", "4"], ["-dp", "2", "-kp", "2"], ["-kp", "4"]],
+                         ids=["dp4", "dp2-kp2", "kp4"])
+def test_find_dist_on_a_mesh(work, mesh):
+    bkg = random_fasta(work / "bkg.fa", 40, 1)
+    argv = ["find_dist", bkg, "-k", "3", "-sbt", "-sbs", "300", "-o", "{out}"]
+    for stem, flags in (("one", []), ("mesh", mesh)):
+        np.random.seed(1)
+        cli.main([a.replace("{out}", stem) for a in argv] + flags + CPU)
+    np.random.seed(1)
+    jax_cli.main([a.replace("{out}", "jax") for a in argv] + mesh)
+    got = np.loadtxt("mesh.csv", delimiter=",")
+    np.testing.assert_allclose(got, np.loadtxt("one.csv", delimiter=","), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.loadtxt("jax.csv", delimiter=","), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("stream", ["off", "on"])
+def test_find_pval_on_a_mesh(work, stream):
+    bkg, q, t = (random_fasta(work / f"{n}.fa", m, s)
+                 for n, m, s in (("bkg", 30, 1), ("q", 5, 2), ("t", 9, 3)))
+    cli.main(["norm_vectors", bkg, "-k", "3", "-mv", "m.npy", "-sv", "s.npy"] + CPU)
+    (work / "fit.csv").write_text('distribution,D,params\nnorm,0.01,"(0.0, 0.25)"\n')
+    argv = ["find_pval", q, t, "m.npy", "s.npy", "3", "fit.csv", "--stream", stream,
+            "-bo", "{out}.npy"]
+    cli.main([a.replace("{out}", "one") for a in argv] + CPU)
+    both([a.replace("{out}", "{out}_mesh") for a in argv] + ["-dp", "2"])
+    got = np.load("t_mesh.npy")
+    np.testing.assert_allclose(got, np.load("one.npy"), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.load("j_mesh.npy"), rtol=0, atol=1e-4)
+
+
+def test_mesh_needs_enough_cards(work, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    bkg = random_fasta(work / "bkg.fa", 10, 1)
+    with pytest.raises(ValueError, match=r"requested 4 devices \(data_parallel=4 x "
+                                         r"kmer_parallel=1\), have 1"):
+        cli.main(["find_dist", bkg, "-k", "3", "-dp", "4", "--device", "cuda"])
 
 
 def test_dispatcher_help_and_unknown(capsys):

@@ -100,6 +100,8 @@ def test_port_imports_without_jax_in_a_fresh_process():
             "seekr_tpu_torch.utils.logging, seekr_tpu_torch.utils.profiler, "
             "seekr_tpu_torch.viz, seekr_tpu_torch.ops.dist, seekr_tpu_torch.graph.maker, "
             "seekr_tpu_torch.viz.long_form, seekr_tpu_torch.utils.progress, "
+            "seekr_tpu_torch.parallel, seekr_tpu_torch.parallel.mesh, "
+            "seekr_tpu_torch.parallel.dist, seekr_tpu_torch.io.checkpoint, "
             + ", ".join(f"seekr_tpu_torch.{name}" for name in ALIASES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'seekr_tpu', 'pandas', 'networkx', 'matplotlib', 'seaborn', "
@@ -207,6 +209,46 @@ def test_slice_seven_entry_points_do_not_fall_back(monkeypatch, tmp_path):
             cli.main(argv)
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "a.fa", "mean.npy", "sim.csv", "sim.npy", "std.npy"]
+
+
+def test_mesh_modules_are_guarded():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"seekr_tpu_torch/parallel/__init__.py", "seekr_tpu_torch/parallel/mesh.py",
+            "seekr_tpu_torch/parallel/dist.py", "seekr_tpu_torch/io/checkpoint.py"} <= names
+    for name in ("parallel/mesh.py", "parallel/dist.py", "io/checkpoint.py"):
+        assert "orbax" not in {m.split(".")[0] for m in
+                               imported_modules(ROOT / "seekr_tpu_torch" / name)}
+
+
+def test_slice_eight_entry_points_do_not_fall_back(monkeypatch, tmp_path):
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.graph.kmer_leiden import kmer_leiden
+    from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags, make_mesh
+    from seekr_tpu_torch.stats import find_dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_mesh()  # never the CPU on its own
+    with pytest.raises(ValueError, match="have 0"):
+        build_mesh_from_flags(4)
+    (tmp_path / "a.fa").write_text(">a\nACGTACGT\n>b\nGGGTTTAA\n")
+    fa = str(tmp_path / "a.fa")
+    np.save(tmp_path / "mean.npy", np.ones(16))
+    np.save(tmp_path / "std.npy", np.ones(16))
+    vectors = (str(tmp_path / "mean.npy"), str(tmp_path / "std.npy"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        find_dist(fa, k_mer=2, data_parallel=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kmer_leiden(fa, *vectors, 2, data_parallel=4)
+    monkeypatch.chdir(tmp_path)
+    for argv in (["find_dist", fa, "-k", "2", "-dp", "4"],
+                 ["find_pval", fa, fa, *vectors, "2", "f.csv", "-dp", "4"],
+                 ["kmer_leiden", fa, *vectors, "2", "-dp", "4"],
+                 ["pipeline", fa, "-b", fa, "-k", "2", "-dp", "4"],
+                 ["serve", *vectors, "-k", "2", "-t", fa, "-dp", "4"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["a.fa", "mean.npy", "std.npy"]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -635,3 +677,62 @@ def test_gpu_workflow_matches_cpu_run(tmp_path):
                               device=dev).run().values for dev in (device, "cpu")}
     assert count_cuda.launches["count_kmers_smem"] > before
     np.testing.assert_allclose(dom[device], dom["cpu"], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_on_one_card_matches_the_cpu_mesh():
+    # four shards on one card run every line of the sharded code and its kernels
+    device = need_cuda()
+    from seekr_tpu_torch.io.stream import ArrayCollector
+    from seekr_tpu_torch.parallel import dist
+    from seekr_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(2)
+    bases = rng.integers(0, 4, size=(64, 700), dtype=np.int8)
+    lengths = rng.integers(400, 701, size=64).astype(np.int32)
+    for r in range(64):
+        bases[r, lengths[r]:] = 4
+    results = {}
+    for dev in (device, torch.device("cpu")):
+        meshes = (make_mesh([dev] * 4), make_mesh([dev] * 4, kmer_parallel=2))
+        before = dict(count_cuda.launches)
+        out = [np.asarray(x) for x in dist.distributed_pipeline(meshes[1], k=4)(bases, lengths)]
+        out.append(np.asarray(dist.distributed_norm_stats(meshes[0], k=9)(bases, lengths)[1]))
+        chunks, n_windows = dist.shard_long_sequence(bases[0, :lengths[0]], 6, 4)
+        out.append(np.asarray(dist.count_long_sequence(meshes[0], 6)(chunks, n_windows).cpu()))
+        w = ArrayCollector()
+        dist.stream_pearson_sharded(meshes[0], out[0], w, block_rows=24)
+        out.append(w.result())
+        if dev == device:
+            # 2 data shards of the (2, 2) pipeline, 4 chunks of the long sequence
+            assert count_cuda.launches["count_kmers_smem"] >= before["count_kmers_smem"] + 6
+            assert count_cuda.launches["count_kmers_hiblocked"] >= \
+                before["count_kmers_hiblocked"] + 4
+        results[str(dev)] = out
+    gpu, cpu = results[str(device)], results["cpu"]
+    assert np.array_equal(gpu[5], cpu[5])  # the long sequence's counts, bitwise
+    for g, c in zip(gpu[:5] + gpu[6:], cpu[:5] + cpu[6:]):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_k9_pearson_within_the_budget_of_float64():
+    # 262,144 columns: as one cuBLAS product outside 1e-4 of float64 on the
+    # H100 at this size; summed in 4,096-column pieces (ops.pearson.gram) inside
+    device = need_cuda()
+    from seekr_tpu_torch import SeekrPipeline
+
+    rng = np.random.default_rng(9)
+    bases = rng.integers(0, 4, size=(2048, 4096), dtype=np.int8)
+    lengths = rng.integers(2048, 4097, size=2048).astype(np.int32)
+    for r in range(2048):
+        bases[r, lengths[r]:] = 4
+    pipe = SeekrPipeline(k=9, log2="Log2.none", device=device)
+    mean = torch.zeros(4 ** 9)
+    std = torch.ones(4 ** 9)
+    counts = pipe.counts(bases, lengths, mean, std)[0].double()
+    z = counts - counts.mean(dim=1, keepdim=True)
+    z = z / z.std(dim=1, keepdim=True, correction=0)
+    want = (z @ z.T) / z.shape[1]
+    got = pipe.forward(bases, lengths, mean, std).double()
+    assert (got - want).abs().max().item() <= 1e-4

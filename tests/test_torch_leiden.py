@@ -13,6 +13,7 @@ import importlib
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from seekr_tpu_torch.io.fast_csv import LabeledMatrix
 from seekr_tpu_torch.io.fasta import write_fasta
@@ -172,13 +173,49 @@ def test_leiden_membership_of_a_matrix_matches(tmp_path):
         leiden.leiden_membership(sim, algo="NoSuchPartition")
 
 
-def test_what_raises_and_what_returns_none(corpus, capsys):
+def test_what_raises_and_what_returns_none(corpus, capsys, monkeypatch):
     fa, (mean, std) = corpus[1], corpus[2][3]
     # streamed, the plot is skipped with seekr_tpu's message and nothing is drawn
     leiden.kmer_leiden(fa, mean, std, 3, stream=True, plotname="net", device="cpu")
     assert "skips the spring-layout plot (net.pdf not written)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        leiden.kmer_leiden(fa, mean, std, 3, data_parallel=2, device="cpu")
+    # a mesh of cards needs that many cards; the CPU mesh needs device="cpu"
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        mp.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="requested 2 devices"):
+            leiden.kmer_leiden(fa, mean, std, 3, data_parallel=2, device="cuda")
     # norm vectors of another k: printed and None, as seekr_tpu
     assert leiden.kmer_leiden(fa, mean, std, 4, device="cpu") is None
     assert "No Leiden community is calculated" in capsys.readouterr().out
+
+
+def test_mesh_matches_one_device_and_seekr_tpu(corpus):
+    """``data_parallel`` on the port's CPU mesh: the streamed edges (what
+    ``data_parallel`` implies) and the dense matrix (``stream=False``) as on one
+    device, the same families as seekr_tpu's mesh run."""
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.parallel.mesh import make_mesh
+
+    k = 4
+    fa, (mean, std) = corpus[1], corpus[2][k]
+    alone = leiden.kmer_leiden(fa, mean, std, k, pearsoncutoff=CUTOFF, setseed=True,
+                               stream=True, device="cpu")
+    got = leiden.kmer_leiden(fa, mean, std, k, pearsoncutoff=CUTOFF, setseed=True,
+                             data_parallel=4, device="cpu")
+    want = jax_leiden.kmer_leiden(fa, mean, std, k, pearsoncutoff=CUTOFF, setseed=True,
+                                  data_parallel=4)
+    assert np.array_equal(got, alone) and same_partition(got, want)
+    assert len(set(got.tolist())) == FAMILIES
+
+    mesh = make_mesh([torch.device("cpu")] * 4)
+    counts = KmerCounter(fa, mean=mean, std=std, k=k, silent=True,
+                         device="cpu").get_counts_device()
+    one = leiden.sparse_similarity_edges(counts, CUTOFF, device="cpu")
+    sharded = leiden.sparse_similarity_edges(counts, CUTOFF, mesh=mesh, block_rows=7)
+    assert edge_set(*sharded[:2]) == edge_set(*one[:2])
+    np.testing.assert_allclose(sharded[2], one[2], rtol=0, atol=1e-6)
+    dense = leiden.similarity_graph(fa, mean, std, k, CUTOFF, mesh=mesh, device="cpu")
+    plain = leiden.similarity_graph(fa, mean, std, k, CUTOFF, device="cpu")
+    assert np.array_equal(dense.values, dense.values.T)  # mirrored
+    np.testing.assert_allclose(dense.values, plain.values, rtol=0, atol=1e-6)
+    assert dense.index == plain.index

@@ -144,3 +144,21 @@ def test_precision_knob_typo_warns_and_uses_float32(monkeypatch):
     monkeypatch.setattr(precision, "_warned_invalid", False)
     with pytest.warns(UserWarning, match="not one of"):
         assert precision.tf32_requested() is False
+
+
+@pytest.mark.parametrize("n_cols", [4096, 3 * 4096 + 5])
+def test_long_contractions_are_summed_in_pieces(n_cols):
+    # up to GEMM_CHUNK columns one product; past it, 4,096-column pieces added
+    # in order (the k = 9 contraction was outside the 1e-4 budget on the card
+    # as one cuBLAS product)
+    rng = np.random.default_rng(n_cols)
+    a = torch.from_numpy(rng.normal(size=(6, n_cols)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(5, n_cols)).astype(np.float32))
+    chunk = torch_ops.GEMM_CHUNK
+    want = a[:, :chunk] @ b[:, :chunk].T
+    for c in range(chunk, n_cols, chunk):
+        want = want + a[:, c:c + chunk] @ b[:, c:c + chunk].T
+    want = want / torch.tensor(float(n_cols))
+    assert torch.equal(torch_ops.matmul_nt(a, b), want)
+    exact = (a.double() @ b.double().T) / n_cols
+    assert (torch_ops.matmul_nt(a, b).double() - exact).abs().max() < 1e-5

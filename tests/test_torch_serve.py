@@ -69,6 +69,20 @@ def services(tmp, **kw):
             jax_serve.SeekrService(*args, k=K, **kw))
 
 
+def port_mesh():
+    from seekr_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cpu")] * 8)
+
+
+def jax_mesh():
+    import jax
+
+    from seekr_tpu.parallel.mesh import make_mesh
+
+    return make_mesh(jax.devices()[:8])
+
+
 def assert_topk_idx_equal(got_idx, want_sim, want_idx, tol=1e-6):
     """Indices must match wherever neighbouring values differ by more than
     ``tol``; nearer values may legally swap between two GEMMs."""
@@ -306,10 +320,16 @@ def test_query_errors_match_seekr_tpu(artifacts):
             svc.query([])
     with pytest.raises(ValueError, match="4\\^k"):
         serve.SeekrService(str(tmp / "mean.npy"), str(tmp / "std.npy"), k=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    # a mesh needs targets, as in seekr_tpu; pod serving comes with slice 9
+    with pytest.raises(ValueError, match="mesh serving requires targets"):
         serve.SeekrService(str(tmp / "mean.npy"), str(tmp / "std.npy"), k=K,
-                           mesh=object(), device="cpu")
-    port.stop_followers()  # a no-op on one card
+                           mesh=port_mesh(), device="cpu")
+    with pytest.raises(ValueError, match="mesh serving requires targets"):
+        jax_serve.SeekrService(str(tmp / "mean.npy"), str(tmp / "std.npy"), k=K,
+                               mesh=jax_mesh())
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        port.follow()
+    port.stop_followers()  # a no-op in one process
 
 
 def test_latency_stats(artifacts):
@@ -620,3 +640,102 @@ def test_growth_under_concurrent_load(artifacts):
         np.testing.assert_allclose(out["sim"][:, :6], base, **COALESCE_TOL)
         np.testing.assert_array_equal(out["topk_sim"], -np.sort(-out["sim"], axis=1))
     assert outs[-1]["n"] == 12
+
+
+# -- the mesh ------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tied_targets():
+    """13 targets (indivisible by the 8 shards) with exact duplicates whose rows
+    land on different shards: t1 = t5 = t9 and t2 = t12."""
+    targets = seqs_of(np.random.default_rng(60), 13)
+    targets[5] = targets[9] = targets[1]
+    targets[12] = targets[2]
+    return targets
+
+
+def test_mesh_service_matches_one_card_and_seekr_tpu(artifacts, tied_targets):
+    tmp, _ = artifacts
+    args = (str(tmp / "mean.npy"), str(tmp / "std.npy"))
+    one = serve.SeekrService(*args, k=K, targets=tied_targets, device="cpu", fitres=FITRES)
+    mesh = serve.SeekrService(*args, k=K, targets=tied_targets, mesh=port_mesh(),
+                              grow_quantum=4, fitres=FITRES)
+    ref = jax_serve.SeekrService(*args, k=K, targets=tied_targets, mesh=jax_mesh(),
+                                 grow_quantum=4, fitres=FITRES)
+    assert mesh.device == torch.device("cpu")  # the mesh's first device
+    assert mesh._scorer.t_loc == 2 and mesh._resident_rows() == 16
+    queries = seqs_of(np.random.default_rng(61), 3) + [tied_targets[1], tied_targets[2]]
+    want = ("sim", "topk", "topk_pvals", "pvals")
+    got, alone, exp = (svc.query(queries, want=want, topk=6) for svc in (mesh, one, ref))
+    assert got["sim"].shape == (5, 13)
+    np.testing.assert_allclose(got["sim"], alone["sim"], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got["topk_idx"], alone["topk_idx"])
+    np.testing.assert_array_equal(got["topk_idx"], exp["topk_idx"])
+    np.testing.assert_allclose(got["topk_sim"], exp["topk_sim"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["pvals"], alone["pvals"], rtol=0, atol=1e-5)
+    # the planted ties cross shards and go to the lower global index
+    assert got["topk_idx"][3, :3].tolist() == [1, 5, 9]
+    assert got["topk_idx"][4, :2].tolist() == [2, 12]
+    assert_exact_ties_ascend(got["topk_sim"], got["topk_idx"])
+    only = mesh.query(queries, want=("topk",), topk=3)  # the topk-only executable
+    np.testing.assert_array_equal(only["topk_idx"], got["topk_idx"][:, :3])
+
+
+def test_mesh_service_coalesces_warms_grows_and_snapshots(artifacts, tied_targets, tmp_path):
+    tmp, _ = artifacts
+    args = (str(tmp / "mean.npy"), str(tmp / "std.npy"))
+    svc = serve.SeekrService(*args, k=K, targets=tied_targets, mesh=port_mesh(),
+                             grow_quantum=4, device="cpu")
+    svc.warmup(lengths=(128,), max_batch=8, topk=4)
+    rng = np.random.default_rng(62)
+    reqs = [(seqs_of(rng, 2), ("sim",), 10), (seqs_of(rng, 3), ("topk",), 2),
+            (seqs_of(rng, 1), ("sim", "topk"), 4)]
+    serial = [svc.query(*r) for r in reqs]
+    batches = svc.device_batches
+    results = hold_lock_and_fire(
+        svc, [lambda r=r: svc.query(r[0], want=r[1], topk=r[2]) for r in reqs])
+    assert svc.device_batches == batches + 1
+    for got, alone in zip(results, serial):
+        for key in ("sim", "topk_sim"):
+            if key in alone:
+                np.testing.assert_allclose(got[key], alone[key], **COALESCE_TOL)
+        if "topk_idx" in alone:
+            assert_topk_idx_equal(got["topk_idx"], alone["topk_sim"], alone["topk_idx"])
+
+    queries = seqs_of(rng, 2)
+    before = svc.query(queries)["sim"]
+    assert svc.add_targets(seqs_of(rng, 3)) == (16, 3) and svc._scorer.t_loc == 2
+    within = svc.query(queries)["sim"]
+    np.testing.assert_array_equal(within[:, :13], before)  # bitwise: no shape changed
+    assert svc.add_targets(seqs_of(rng, 2)) == (18, 2) and svc._scorer.t_loc == 3
+    across = svc.query(queries, want=("sim", "topk"), topk=18)
+    np.testing.assert_allclose(across["sim"][:, :16], within, rtol=0, atol=1e-6)
+    assert sorted(across["topk_idx"][0].tolist()) == list(range(18))
+
+    snap = str(tmp_path / "mesh.npz")
+    svc.save_corpus(snap)
+    with np.load(snap) as z:
+        assert z["tstd"].shape == (18, 4 ** K)  # real rows only
+    again = serve.SeekrService(*args, k=K, targets=snap, mesh=port_mesh(), grow_quantum=4,
+                               device="cpu")
+    np.testing.assert_array_equal(again.query(queries)["sim"], across["sim"])
+    single = serve.SeekrService(*args, k=K, targets=snap, device="cpu")
+    np.testing.assert_allclose(single.query(queries)["sim"], across["sim"], rtol=0, atol=1e-6)
+
+
+def test_mesh_budget_is_per_device(artifacts, tied_targets):
+    tmp, _ = artifacts
+    args = (str(tmp / "mean.npy"), str(tmp / "std.npy"))
+    # 16 resident rows over 8 devices: 2 x 64 x 4 = 512 bytes each
+    port = serve.SeekrService(*args, k=K, targets=tied_targets, mesh=port_mesh(),
+                              grow_quantum=4, mem_budget_bytes=512)
+    ref = jax_serve.SeekrService(*args, k=K, targets=tied_targets, mesh=jax_mesh(),
+                                 grow_quantum=4, mem_budget_bytes=512)
+    messages = []
+    for svc in (port, ref):
+        rng = np.random.default_rng(63)
+        assert svc.add_targets(seqs_of(rng, 3))[0] == 16
+        with pytest.raises(ValueError) as exc:
+            svc.add_targets(seqs_of(rng, 1))
+        messages.append(str(exc.value))
+    assert messages[0] == messages[1] and "over 8 devices" in messages[0]

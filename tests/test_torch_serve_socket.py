@@ -7,7 +7,8 @@ seekr_tpu's, on the CPU.
   tolerance).  Error paths, the line cap and the artifact policy behave as
   seekr_tpu's (tests/test_serve_security.py).
 * CLI: ``query`` writes the bytes seekr_tpu's ``query`` writes from the same
-  service; ``serve`` answers as the service does; the mesh flags are refused.
+  service; ``serve`` answers as the service does, on one device or a mesh
+  (``-dp``); the multi-host flags are refused.
 
 Every wait is bounded: each server runs in a thread that is shut down in a
 ``finally`` and joined with a timeout, and ``request`` always has a timeout.
@@ -374,10 +375,10 @@ def test_serve_save_corpus_loads_in_seekr_tpu(artifacts, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["-dp", "2"], "multi-GPU slice"),
-    (["--coordinator", "host0:8476"], "multi-GPU slice"),
-    (["--num_processes", "2"], "multi-GPU slice"),
-    (["--process_id", "1"], "multi-GPU slice"),
+    (["-dp", "2"], "-dp requires -t/--targets"),
+    (["--coordinator", "host0:8476"], "slice 9"),
+    (["--num_processes", "2"], "slice 9"),
+    (["--process_id", "1"], "slice 9"),
     (["--save-corpus", "c.npz"], "requires -t/--targets"),
 ])
 def test_serve_refusals(artifacts, capsys, flags, message):
@@ -385,6 +386,18 @@ def test_serve_refusals(artifacts, capsys, flags, message):
         cli.main(["serve", str(artifacts / "mean.npy"), str(artifacts / "std.npy"),
                   "--device", "cpu"] + flags)
     assert exc.value.code == 2 and message in capsys.readouterr().err
+
+
+def test_serve_on_a_mesh_saves_the_same_corpus(artifacts, tmp_path):
+    snaps = [str(tmp_path / f"{name}.npz") for name in ("one", "mesh")]
+    for snap, flags in zip(snaps, ([], ["-dp", "4"])):
+        cli.main(["serve", str(artifacts / "mean.npy"), str(artifacts / "std.npy"),
+                  "-k", str(K), "-t", str(artifacts / "targets.fa"), "--save-corpus", snap,
+                  "--device", "cpu"] + flags)
+    with np.load(snaps[0]) as one, np.load(snaps[1]) as mesh:
+        assert one.files == mesh.files
+        for key in one.files:
+            np.testing.assert_array_equal(one[key], mesh[key])
 
 
 def test_serve_needs_a_card_unless_cpu_is_asked(artifacts, monkeypatch):

@@ -60,7 +60,7 @@ def corpus(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     return {"bkg": random_fasta(tmp_path / "bkg.fa", 60, 1),
             "q": random_fasta(tmp_path / "q.fa", 12, 2),
-            "t": random_fasta(tmp_path / "t.fa", 25, 3)}
+            "t": random_fasta(tmp_path / "t.fa", 25, 3), "dir": tmp_path}
 
 
 def pvalues_with_ties(rng, n):
@@ -396,14 +396,46 @@ def test_adj_pval_rejects_other_inputs_and_asymmetric_labels(capsys):
     assert "not a symmetric matrix" in capsys.readouterr().out
 
 
-def test_entry_points_refuse_what_later_slices_bring(corpus):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        find_dist(corpus["bkg"], plotfit="plot", kmer_parallel=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        find_dist(corpus["bkg"], data_parallel=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+def test_entry_points_refuse_what_later_slices_bring(corpus, monkeypatch):
+    # a mesh of cards needs that many cards (the CPU mesh needs device="cpu"),
+    # and fails before any counting
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"requested 4 devices \(data_parallel=2 x "
+                                         r"kmer_parallel=2\), have 1"):
+        find_dist(corpus["bkg"], plotfit="plot", data_parallel=2, kmer_parallel=2,
+                  device="cuda")
+    with pytest.raises(ValueError, match="requested 2 devices"):
         find_pval(corpus["q"], corpus["t"], "m.npy", "s.npy", K, [], data_parallel=2,
-                  device=CPU)
+                  device="cuda")
+    assert not list(corpus["dir"].glob("bkg_*.npy"))
+
+
+@pytest.mark.parametrize("dp,kp", [(4, 1), (2, 2)], ids=["dp4", "dp2-kp2"])
+def test_find_dist_and_find_pval_on_a_mesh(corpus, dp, kp):
+    one = find_dist(corpus["bkg"], k_mer=K, fit_model=False, subsetting=False, device=CPU)
+    got = find_dist(corpus["bkg"], k_mer=K, fit_model=False, subsetting=False,
+                    data_parallel=dp, kmer_parallel=kp, device=CPU)
+    want = jax_find_dist(corpus["bkg"], k_mer=K, fit_model=False, subsetting=False,
+                         data_parallel=dp, kmer_parallel=kp)
+    assert got.shape == one.shape == (60 * 59 // 2,)
+    np.testing.assert_allclose(got, one, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
+
+    vectors = ("bkg_mean_3mers.npy", "bkg_std_3mers.npy")
+    background = np.sort(got)
+    for q, t in ((corpus["q"], corpus["t"]), (corpus["t"], corpus["t"])):
+        mesh = find_pval(q, t, *vectors, K, got, data_parallel=dp, device=CPU).values
+        alone = find_pval(q, t, *vectors, K, got, device=CPU).values
+        ref = jax_find_pval(q, t, *vectors, K, got, data_parallel=dp).to_numpy()
+        np.testing.assert_allclose(mesh, alone, rtol=0, atol=1e-6)
+        counts = [KmerCounter(f, mean=vectors[0], std=vectors[1], k=K, silent=True,
+                              device=CPU).get_counts() for f in (q, t)]
+        r = pearson(*counts, device=CPU).astype(np.float64)
+        ties = (np.searchsorted(background, r + 1e-5, side="right")
+                > np.searchsorted(background, r - 1e-5, side="left"))
+        assert np.array_equal(mesh[~ties], ref[~ties])  # equal away from ties
+    assert np.array_equal(mesh, mesh.T)  # the self path mirrors: exactly symmetric
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(corpus, monkeypatch):

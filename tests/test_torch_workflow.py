@@ -154,9 +154,53 @@ def test_what_raises(tmp_path):
         run_workflow(QUERIES, background=BACKGROUND, k=2, outdir=str(tmp_path / "never"),
                      leiden=True, leiden_algo="RBERVertexPartion", device="cpu")
     assert not (tmp_path / "never").exists()  # refused before any stage
-    for kwargs in ({"data_parallel": 2}, {"kmer_parallel": 4}, {"coordinator": "h:1"},
-                   {"num_processes": 2, "process_id": 0}):
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    # the multi-host arguments come with slice 9 (a mesh in one process runs)
+    for kwargs in ({"coordinator": "h:1"}, {"num_processes": 2, "process_id": 0},
+                   {"data_parallel": 2, "coordinator": "h:1"},
+                   {"data_parallel": 2, "kmer_parallel": 2, "num_processes": 4}):
+        with pytest.raises(NotImplementedError, match="slice 9"):
             run_workflow(QUERIES, background=BACKGROUND, k=2, outdir=str(tmp_path / "m"),
                          device="cpu", **kwargs)
     assert not (tmp_path / "m").exists()
+
+
+@pytest.mark.parametrize("mesh", [{"data_parallel": 4}, {"data_parallel": 2, "kmer_parallel": 2}],
+                         ids=["dp4", "dp2-kp2"])
+def test_mesh_run_matches_one_device_and_seekr_tpu(both_runs, mesh):
+    # self (with Leiden) and cross; the port's CPU mesh against its one-device
+    # run and seekr_tpu's mesh on its virtual devices
+    k, out, jax, port = both_runs
+    name = "-".join(f"{key}{value}" for key, value in mesh.items())
+    got = run_workflow(QUERIES, background=BACKGROUND, k=k, outdir=str(out / f"t_{name}"),
+                       device="cpu", **RUN, **mesh)
+    ref = jax_run_workflow(QUERIES, background=BACKGROUND, k=k,
+                           outdir=str(out / f"j_{name}"), **RUN, **mesh)
+    np.testing.assert_allclose(got["pearson"], port["pearson"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["null_sample"], port["null_sample"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["pearson"], np.asarray(ref["pearson"]), rtol=0, atol=1e-4)
+    assert np.array_equal(got["pearson"], got["pearson"].T)  # mirrored
+    ties = near_null(got["pearson"], got["null_sample"])
+    assert np.array_equal(got["pvals"].values[~ties], ref["pvals"].to_numpy()[~ties])
+    assert np.array_equal(got["communities"], port["communities"])
+    assert np.array_equal(got["communities"], ref["communities"])
+    cross = run_workflow(QUERIES, seq2file=BACKGROUND, background=BACKGROUND, k=k,
+                         outdir=str(out / f"x_{name}"), subset_size=400, seed=3,
+                         device="cpu", **mesh)
+    alone = run_workflow(QUERIES, seq2file=BACKGROUND, background=BACKGROUND, k=k,
+                         outdir=str(out / f"x1_{name}"), subset_size=400, seed=3,
+                         device="cpu")
+    np.testing.assert_allclose(cross["pearson"], alone["pearson"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(cross["pvals"].values, alone["pvals"].values, rtol=0, atol=1e-6)
+
+
+def test_pipeline_command_on_a_mesh(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    base = ["pipeline", QUERIES, "-b", BACKGROUND, "-k", "2", "-sbs", "500", "-sd", "7",
+            "--leiden", "-lc", "0.1", "--device", "cpu"]
+    cli.main(base + ["-o", "one"])
+    cli.main(base + ["-o", "mesh", "-dp", "2", "-kp", "2"])
+    for name in ("counts1.csv", "communities.csv", "mean_2mers.npy", "std_2mers.npy"):
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()
+    np.testing.assert_allclose(read_labeled_csv(tmp_path / "mesh" / "pearson.csv").values,
+                               read_labeled_csv(tmp_path / "one" / "pearson.csv").values,
+                               rtol=0, atol=1e-6)
