@@ -153,15 +153,38 @@ and runs these phases, each a function of (device, scale, state):
    Leiden membership equal to the single card's and the planted families; the
    service's sim within 1e-6 and its top-k equal away from near ties,
    bitwise across a grow within the quantum and a snapshot; the checkpoint
-   bitwise.
+   bitwise;
+12. the mesh across processes: two processes joined by ``torch.distributed``
+   on 127.0.0.1 (one per card where there are two, each seeing only its own,
+   NCCL for the data; else both on the one card, gloo staged through pinned
+   host memory), each a ``chip_smoke.py --child`` process; the backend of each
+   process group is printed.  (a) ``distributed_pipeline`` on phase 3's corpus
+   at k = 6, median of 5 in each process with its collectives' host ms apart,
+   beside the one-process mesh of the same two positions timed here; each
+   process holds its shards against its own one-process mesh of the same grid
+   (counts, mean, std bitwise, r within 1e-6) and ``SeekrPipeline.forward``
+   (1e-4).  (b) The CLI's ``serve -dp 2 --num_processes 2 --coordinator`` on
+   phase 7's 13,000 targets: interleaved Q=1 ``sim`` and Q=128 ``topk=10``
+   socket requests beside the single-card service behind a socket of its own
+   (sim within 1e-6, top-k equal away from near ties), one ``add_targets``, a
+   shutdown after which both processes exit 0.  (c) A pod whose follower is
+   killed: the client's "unresponsive" error within the watchdog's 10 s and a
+   margin, later requests failing at once, the leader exiting 0.  (d) The CLI's
+   ``pipeline -dp 2 --num_processes 2`` (1,000 queries, a 2,048-transcript
+   background): only process 0 writes, its artifacts byte-equal to one process
+   holding the same mesh, the counts and norm vectors to the single card, r
+   within 1e-5 of it.
 
 Launch counts are set to 0 just before phases 3, 4, 6, 7, 8, 9 (the workflow,
 ``domain_pearson`` and the PWM counts), 10 (the profiles and the barplots'
 counts) and each main-path section of phase 11 drive the main path and read just
-after; the run fails if a kernel of the path was not launched, phases 9 and 10
-fail if their counting did not launch ``count_kmers_smem``, and phase 11 if its
+after; in phase 12 each child process counts from 0 over its main path and
+prints its counts on its JSON line, which are added to the main path's.  The
+run fails if a kernel of the path was not launched, phases 9 and 10
+fail if their counting did not launch ``count_kmers_smem``, phase 11 if its
 pipeline did not launch ``count_kmers_smem`` on every shard or its k = 9 grid
-``count_kmers_hiblocked`` on every data shard.
+``count_kmers_hiblocked`` on every data shard, and phase 12 if the processes of
+(a), (b) or (d) did not launch ``count_kmers_smem``.
 The last lines are the ``kernels`` JSON line, the card's ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card the script exits non-zero and prints no result.
@@ -3270,14 +3293,496 @@ def phase_mesh(device, scale, state):
         raise AssertionError(f"mesh checks failed: {failures}")
 
 
+POD_PROCESSES = 2          # processes of phase 12's mesh
+POD_TIMEOUT_S = 10         # SEEKR_TPU_POD_TIMEOUT of the killed-follower pod
+POD_DEAD_TARGETS = 1000    # targets of the killed-follower pod
+CHILD_TAG = "CHILD "       # the prefix of a phase 12 child's JSON line
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env(pid: int, cards: int, extra=None) -> dict:
+    """A phase 12 child's environment: the repository importable and, with a
+    card for every process, only its own card visible: the ``pid``-th of this
+    process's ``CUDA_VISIBLE_DEVICES`` where that is set."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent), **(extra or {}))
+    if cards >= POD_PROCESSES:
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        env["CUDA_VISIBLE_DEVICES"] = visible.split(",")[pid].strip() if visible else str(pid)
+    return env
+
+
+def start_children(args_of, cards, cwd=None, extra_env=None):
+    """One ``chip_smoke.py --child`` process per pod process; ``args_of(pid,
+    coordinator)`` gives its arguments."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--child",
+                              *args_of(pid, coordinator)],
+                             cwd=None if cwd is None else cwd(pid), env=child_env(
+                                 pid, cards, extra_env),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for pid in range(POD_PROCESSES)]
+
+
+def stop_children(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait(timeout=60)
+
+
+def child_results(procs, timeout, what):
+    """Wait for every child (``timeout`` s in all); each must exit 0.  Returns
+    their JSON lines (None where a child printed none)."""
+    deadline = time.perf_counter() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+    except subprocess.TimeoutExpired:
+        stop_children(procs)
+        raise AssertionError(f"{what}: a process did not finish within {timeout} s")
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: process {pid} exited {p.returncode}:\n{out[-4000:]}")
+    return [next((json.loads(line[len(CHILD_TAG):]) for line in out.splitlines()
+                  if line.startswith(CHILD_TAG)), None) for out in outs]
+
+
+def wait_for_socket(path, procs, timeout):
+    from seekr_tpu_torch.serve import request
+
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        for pid, p in enumerate(procs):
+            if p.poll() is not None:
+                raise AssertionError(f"pod process {pid} exited {p.returncode} before "
+                                     f"serving:\n{p.communicate()[0][-4000:]}")
+        try:
+            if request(path, {"op": "ping"}, timeout=10)["ok"]:
+                return
+        except OSError:
+            pass
+        time.sleep(0.25)
+    raise AssertionError(f"the pod never answered on {path} within {timeout} s")
+
+
+def child_pipeline(scale, seed: int, coordinator: str, pid: int, device: str) -> dict:
+    """One process of phase 12 (a): ``distributed_pipeline`` on the corpus over
+    the processes' mesh, its shards held against this process's own
+    one-process mesh of the same grid and against ``SeekrPipeline.forward``."""
+    import torch
+
+    from seekr_tpu_torch.models.pipeline import SeekrPipeline
+    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.parallel import comm, dist
+    from seekr_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    dev = torch.device(device)
+    comm.init_distributed(coordinator, POD_PROCESSES, pid, device=dev)
+    mesh = make_mesh([dev])
+    bases, lengths = make_corpus(scale.corpus_m, scale.corpus_cap, seed)
+    bt, nt = torch.as_tensor(bases, device=dev), torch.as_tensor(lengths, device=dev)
+    step = dist.distributed_pipeline(mesh, k=PIPELINE_K)
+    count_cuda.reset_launches()
+    got = step(bt, nt)
+    sync(dev)
+    walls, collective = [], []
+    for _ in range(scale.mesh_reps):
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        got = step(bt, nt)
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        collective.append({name: dict(row) for name, row in comm.stats.items()})
+    launches = dict(count_cuda.launches)
+
+    # comparisons, not counted: the one-process mesh of the same grid, the forward
+    one = dist.distributed_pipeline(Mesh([[dev]] * POD_PROCESSES), k=PIPELINE_K)(bt, nt)
+    out = {"role": "pipeline", "pid": pid, "backends": comm.backends(),
+           "mesh_positions": mesh.local_positions, "walls_ms": walls,
+           "collectives": collective, "launches": launches}
+
+    def held(tensor):
+        return {tuple((sl.start, sl.stop) for sl in s.index): s.data
+                for s in tensor.addressable_shards}
+
+    mine_c, ref_c = held(got[0]), held(one[0])
+    mine_s, ref_s = held(got[3]), held(one[3])
+    out["counts_bitwise_vs_one_process"] = all(torch.equal(x, ref_c[key])
+                                               for key, x in mine_c.items())
+    out["sim_max_abs_vs_one_process"] = max(float((x - ref_s[key]).abs().max())
+                                            for key, x in mine_s.items())
+    out["sim_bitwise_vs_one_process"] = all(torch.equal(x, ref_s[key])
+                                            for key, x in mine_s.items())
+    out["mean_std_bitwise_vs_one_process"] = all(
+        torch.equal(a.addressable_shards[0].data, b.addressable_shards[0].data)
+        for a, b in ((got[1], one[1]), (got[2], one[2])))
+    del one
+    pipe = SeekrPipeline(k=PIPELINE_K, device=dev)
+    ref_counts = pipe.counts(bt, nt)[0]
+    ref_sim = pipe.forward(bt, nt)
+    errs, oks = [], []
+    for key, x in mine_c.items():
+        ok, err = close_on_device(x, ref_counts[key[0][0]:key[0][1], key[1][0]:key[1][1]])
+        oks.append(ok)
+        errs.append(err)
+    out["counts_within_rtol_1e-4_of_forward"] = all(oks)
+    out["counts_max_abs_vs_forward"] = max(errs)
+    out["sim_max_abs_vs_forward"] = max(
+        float((x - ref_sim[key[0][0]:key[0][1]]).abs().max()) for key, x in mine_s.items())
+    return out
+
+
+def child_cli(argv) -> dict:
+    """One process of phase 12 (b)-(d): the port's command line as a user runs
+    it; its launches and collective totals after it returns."""
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.parallel import comm
+
+    count_cuda.reset_launches()
+    cli.main(list(argv))
+    return {"role": "cli", "pid": comm.process_index(), "backends": comm.backends(),
+            "launches": dict(count_cuda.launches),
+            "collectives": {name: dict(row) for name, row in comm.stats.items()}}
+
+
+def child_main(argv) -> int:
+    """``chip_smoke.py --child pipeline SCALE SEED COORDINATOR PID DEVICE`` or
+    ``--child cli ARGV...``: one process of phase 12; its result is the last
+    line starting with ``CHILD ``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    role, rest = argv[0], argv[1:]
+    if role == "pipeline":
+        scale, seed, coordinator, pid, device = rest
+        result = child_pipeline({"full": FULL, "tiny": TINY}[scale], int(seed), coordinator,
+                                int(pid), device)
+    else:
+        result = child_cli(rest)
+    print(CHILD_TAG + json.dumps(result), flush=True)
+    return 0
+
+
+def add_child_launches(state, results, what) -> dict:
+    """Add the children's launches to the main-path counts (the kernels line)."""
+    from seekr_tpu_torch.ops import count_cuda
+
+    total = dict.fromkeys(count_cuda.KERNELS, 0)
+    for result in results:
+        for name, n in (result or {}).get("launches", {}).items():
+            total[name] += n
+    main = state.setdefault("launches", dict.fromkeys(count_cuda.KERNELS, 0))
+    for name, n in total.items():
+        main[name] += n
+    log(f"{what}: the processes' kernel launches {total}")
+    return total
+
+
+def phase_processes(device, scale, state):
+    """Phase 12: the mesh across processes.  Two processes joined by
+    ``torch.distributed`` (one per card where there are two, else both on the
+    one card, gloo through pinned host memory): the pipeline on the corpus,
+    the CLI's pod serve on phase 7's targets, a killed follower, and the CLI's
+    pipeline, each held against one process."""
+    import os
+    import signal
+
+    import torch
+
+    from seekr_tpu_torch import cli
+    from seekr_tpu_torch.ops.count import count_graph
+    from seekr_tpu_torch.ops.normalize import normalize_graph
+    from seekr_tpu_torch.parallel import dist
+    from seekr_tpu_torch.parallel.mesh import make_mesh
+    from seekr_tpu_torch.serve import SeekrService, request, serve_forever
+
+    cuda = is_cuda(device)
+    cards = torch.cuda.device_count() if cuda else 0
+    child_dev = "cuda:0" if cuda else "cpu"
+    cpu_flag = [] if cuda else ["--device", "cpu"]
+    scale_name = "full" if scale is FULL else "tiny"
+    out = {"phase": "processes", "card": state.get("smi"), "cards": cards,
+           "processes": POD_PROCESSES, "placement": ("a card each" if cards >= POD_PROCESSES
+                                                    else "one shared device")}
+    checks, walls = {}, {}
+    seed = state["seed"]
+
+    # -- (a) distributed_pipeline over the processes ---------------------------
+    t0 = time.perf_counter()
+    procs = start_children(lambda pid, coord: ["pipeline", scale_name, str(seed), coord,
+                                               str(pid), child_dev], cards)
+    try:
+        results = child_results(procs, 600, "(a) pipeline")
+    finally:
+        stop_children(procs)
+    walls["a_pipeline_s"] = time.perf_counter() - t0
+    launched = add_child_launches(state, results, "processes: pipeline")
+    bases, lengths = state["corpus"]
+    bt = torch.as_tensor(bases, device=device)
+    nt = torch.as_tensor(lengths, device=device)
+    one_mesh = make_mesh([torch.device(device)] * POD_PROCESSES)
+    one_step = dist.distributed_pipeline(one_mesh, k=PIPELINE_K)
+    one_step(bt, nt)
+    sync(device)
+    one_ms = []
+    for _ in range(scale.mesh_reps):  # the one-process mesh of the same grid, in this call
+        t0 = time.perf_counter()
+        one_step(bt, nt)
+        sync(device)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    del bt, nt
+    out["backends"] = results[0]["backends"]
+    log(f"process groups: {out['backends']}")
+    out["pipeline"] = {
+        "rows": int(bases.shape[0]), "k": PIPELINE_K,
+        "ms_median_by_process": [statistics.median(r["walls_ms"]) for r in results],
+        "ms_all_by_process": [r["walls_ms"] for r in results],
+        "collective_ms_median_by_process": [
+            statistics.median((c["data"]["s"] + c["control"]["s"]) * 1e3
+                              for c in r["collectives"]) for r in results],
+        "data_bytes_per_run_by_process": [r["collectives"][-1]["data"]["bytes"]
+                                          for r in results],
+        "one_process_mesh_ms_median": statistics.median(one_ms),
+        "one_process_mesh_ms_all": one_ms, "launches": launched,
+        "sim_max_abs_vs_one_process": max(r["sim_max_abs_vs_one_process"] for r in results),
+        "sim_bitwise_vs_one_process": all(r["sim_bitwise_vs_one_process"] for r in results),
+        "counts_max_abs_vs_forward": max(r["counts_max_abs_vs_forward"] for r in results),
+        "sim_max_abs_vs_forward": max(r["sim_max_abs_vs_forward"] for r in results)}
+    checks["(a) counts, mean, std bitwise the one-process mesh"] = all(
+        r["counts_bitwise_vs_one_process"] and r["mean_std_bitwise_vs_one_process"]
+        for r in results)
+    checks["(a) sim within 1e-6 of the one-process mesh"] = \
+        out["pipeline"]["sim_max_abs_vs_one_process"] <= 1e-6
+    checks["(a) within 1e-4 of phase 3's forward"] = all(
+        r["counts_within_rtol_1e-4_of_forward"] for r in results) and \
+        out["pipeline"]["sim_max_abs_vs_forward"] <= 1e-4
+    checks["(a) the processes launched count_kmers_smem"] = (
+        not cuda or launched["count_kmers_smem"] >= POD_PROCESSES * (scale.mesh_reps + 1))
+    checks["(a) each process holds its own rows"] = sorted(
+        tuple(map(tuple, r["mesh_positions"])) for r in results) == [((0, 0),), ((1, 0),)]
+
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        procs = []
+        try:
+            seqs = state["seqs"]
+            write_fasta_file("targets.fa", seqs)
+            raw = count_graph(torch.as_tensor(bases, device=device),
+                              torch.as_tensor(lengths, device=device), SERVE_K)
+            _, smean, sstd = normalize_graph(raw, None, None, "Log2.none")
+            del raw
+            np.save("s_mean.npy", smean.cpu().numpy())
+            np.save("s_std.npy", sstd.cpu().numpy())
+            svec = ["s_mean.npy", "s_std.npy"]
+            rng = np.random.default_rng(seed + 14)
+            q1 = [random_queries(rng, 1) for _ in range(scale.serve_rounds * scale.serve_q1)]
+            big = [random_queries(rng, scale.serve_big_q)
+                   for _ in range(scale.serve_rounds * scale.serve_big)]
+            check_q = random_queries(rng, SERVE_CHECK_Q)
+            grow_in = random_queries(rng, scale.serve_grow[0])
+
+            # -- (b) the CLI's pod serve ---------------------------------------
+            serve_args = ["serve", *svec, "-k", str(SERVE_K), "-t", "targets.fa",
+                          "--grow-quantum", str(SERVE_QUANTUM), "-dp", str(POD_PROCESSES),
+                          "--num_processes", str(POD_PROCESSES)] + cpu_flag
+            t0 = t_serve = time.perf_counter()
+            procs = start_children(lambda pid, coord: ["cli", *serve_args, "--socket",
+                                                       os.path.join(tmp, "pod.sock"),
+                                                       "--process_id", str(pid),
+                                                       "--coordinator", coord], cards)
+            wait_for_socket("pod.sock", procs, 600)
+            walls["b_pod_up_s"] = time.perf_counter() - t0
+            one = SeekrService(*svec, k=SERVE_K, targets="targets.fa",
+                               grow_quantum=SERVE_QUANTUM, device=device)
+            one.warmup()
+            import threading
+
+            ready = threading.Event()
+            server = threading.Thread(target=serve_forever, args=(one, "one.sock", ready),
+                                      daemon=True)
+            server.start()
+            if not ready.wait(60):
+                raise AssertionError("the single-card socket server never came up")
+
+            def ask(path, seqs_, want, topk=SERVE_TOPK):
+                t0 = time.perf_counter()
+                answer = request(path, {"seqs": seqs_, "want": list(want), "topk": topk},
+                                 timeout=300)
+                if not answer.get("ok"):
+                    raise AssertionError(f"{path}: {answer}")
+                return answer, (time.perf_counter() - t0) * 1e3
+
+            lat = {"pod_q1": [], "one_q1": [], "pod_big": [], "one_big": []}
+            sims, tops = [], []
+            for r in range(scale.serve_rounds):  # interleaved, the single card beside
+                for b in q1[r * scale.serve_q1:(r + 1) * scale.serve_q1]:
+                    a, ms = ask("pod.sock", b, ("sim",))
+                    lat["pod_q1"].append(ms)
+                    ref, ms = ask("one.sock", b, ("sim",))
+                    lat["one_q1"].append(ms)
+                    sims.append((np.asarray(a["sim"]), np.asarray(ref["sim"])))
+                for b in big[r * scale.serve_big:(r + 1) * scale.serve_big]:
+                    a, ms = ask("pod.sock", b, ("topk",))
+                    lat["pod_big"].append(ms)
+                    ref, ms = ask("one.sock", b, ("topk",), SERVE_TOPK + 1)
+                    lat["one_big"].append(ms)
+                    tops.append((a, ref))
+            t0 = time.perf_counter()
+            grown = request("pod.sock", {"op": "add_targets", "seqs": grow_in}, timeout=300)
+            walls["b_pod_add_targets_s"] = time.perf_counter() - t0
+            one.add_targets(grow_in)
+            after_pod = np.asarray(ask("pod.sock", check_q, ("sim",))[0]["sim"])
+            after_one = np.asarray(ask("one.sock", check_q, ("sim",))[0]["sim"])
+            request("one.sock", {"op": "shutdown"}, timeout=60)
+            server.join(timeout=60)
+            down = request("pod.sock", {"op": "shutdown"}, timeout=60)
+            results = child_results(procs, 120, "(b) pod serve")
+            walls["b_pod_s"] = time.perf_counter() - t_serve
+            launched = add_child_launches(state, results, "processes: pod serve")
+            out["serve"] = {
+                "targets": len(seqs), "k": SERVE_K,
+                "pod_q1_sim_p50_ms": statistics.median(lat["pod_q1"]),
+                "one_q1_sim_p50_ms": statistics.median(lat["one_q1"]),
+                "phase_7_q1_sim_p50_ms": state.get("serve", {}).get("q1_sim_p50_ms"),
+                f"pod_q{scale.serve_big_q}_topk{SERVE_TOPK}_seqs_per_s":
+                    scale.serve_big_q / (statistics.median(lat["pod_big"]) / 1e3),
+                f"one_q{scale.serve_big_q}_topk{SERVE_TOPK}_seqs_per_s":
+                    scale.serve_big_q / (statistics.median(lat["one_big"]) / 1e3),
+                f"phase_7_q{scale.serve_big_q}_topk{SERVE_TOPK}_seqs_per_s": state.get(
+                    "serve", {}).get(f"q{scale.serve_big_q}_topk{SERVE_TOPK}_seqs_per_s"),
+                "latency_ms_all": lat, "launches": launched,
+                "collectives_by_process": [r["collectives"] for r in results],
+                "sim_max_abs_vs_one": max(float(np.abs(a - b).max()) for a, b in sims),
+                "after_grow_max_abs_vs_one": float(np.abs(after_pod - after_one).max())}
+            checks["(b) the pod's sim within 1e-6 of the single card"] = \
+                out["serve"]["sim_max_abs_vs_one"] <= 1e-6
+            checks["(b) the pod's top-k agrees with the single card"] = all(
+                topk_agrees(np.asarray(a["topk_sim"]), np.asarray(a["topk_idx"]),
+                            np.asarray(b["topk_sim"]), np.asarray(b["topk_idx"]))
+                for a, b in tops)
+            checks["(b) add_targets grew the pod"] = bool(
+                grown.get("ok") and grown["n"] == len(seqs) + len(grow_in)
+                and after_pod.shape == (SERVE_CHECK_Q, len(seqs) + len(grow_in))
+                and out["serve"]["after_grow_max_abs_vs_one"] <= 1e-6)
+            checks["(b) shutdown: both processes exited 0"] = bool(down.get("ok"))
+            checks["(b) the processes launched count_kmers_smem"] = (
+                not cuda or launched["count_kmers_smem"] > 0)
+            del one
+
+            # -- (c) a killed follower -------------------------------------------
+            write_fasta_file("small.fa", seqs[:POD_DEAD_TARGETS])
+            dead_args = ["serve", *svec, "-k", str(SERVE_K), "-t", "small.fa", "--no-warmup",
+                         "-dp", str(POD_PROCESSES), "--num_processes",
+                         str(POD_PROCESSES)] + cpu_flag
+            procs = start_children(lambda pid, coord: ["cli", *dead_args, "--socket",
+                                                       os.path.join(tmp, "dead.sock"),
+                                                       "--process_id", str(pid),
+                                                       "--coordinator", coord], cards,
+                                   extra_env={"SEEKR_TPU_POD_TIMEOUT": str(POD_TIMEOUT_S)})
+            wait_for_socket("dead.sock", procs, 600)
+            ask("dead.sock", check_q, ("topk",))
+            procs[1].send_signal(signal.SIGKILL)
+            procs[1].wait(timeout=60)
+            t0 = time.perf_counter()
+            lost = request("dead.sock", {"seqs": check_q, "want": ["topk"],
+                                         "topk": SERVE_TOPK}, timeout=120)
+            lost_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = request("dead.sock", {"seqs": check_q, "want": ["sim"]}, timeout=120)
+            again_s = time.perf_counter() - t0
+            request("dead.sock", {"op": "shutdown"}, timeout=60)
+            leader_rc = procs[0].wait(timeout=120)
+            out["killed_follower"] = {"timeout_s": POD_TIMEOUT_S, "error_after_s": lost_s,
+                                      "error": str(lost.get("error"))[:300],
+                                      "next_error_after_s": again_s, "leader_rc": leader_rc}
+            checks["(c) the client got the unresponsive error within the deadline"] = (
+                lost.get("ok") is False and "unresponsive" in str(lost.get("error"))
+                and lost_s <= POD_TIMEOUT_S + 5)
+            checks["(c) later requests fail fast and the leader exits 0"] = (
+                again.get("ok") is False and again_s <= 5 and leader_rc == 0)
+
+            # -- (d) the CLI's pipeline over the processes ------------------------
+            write_fasta_file("q.fa", seqs[:scale.stats_query])
+            write_fasta_file("bkg.fa", seqs[:scale.stats_self])
+            run = ["pipeline", os.path.join(tmp, "q.fa"), "-b", os.path.join(tmp, "bkg.fa"),
+                   "-k", str(PIPELINE_K), "-sd", "0", "-o", "out"] + cpu_flag
+            for pid in range(POD_PROCESSES):
+                os.makedirs(f"p{pid}")
+            t0 = time.perf_counter()
+            procs = start_children(lambda pid, coord: ["cli", *run, "-dp", str(POD_PROCESSES),
+                                                       "--num_processes", str(POD_PROCESSES),
+                                                       "--process_id", str(pid),
+                                                       "--coordinator", coord], cards,
+                                   cwd=lambda pid: os.path.join(tmp, f"p{pid}"))
+            results = child_results(procs, 600, "(d) pipeline")
+            walls["d_pipeline_s"] = time.perf_counter() - t0
+            launched = add_child_launches(state, results, "processes: CLI pipeline")
+            os.makedirs("mesh")
+            os.makedirs("single")
+            with data_parallel_on_shards(cards):
+                os.chdir("mesh")
+                cli.main(run + ["-dp", str(POD_PROCESSES)])
+                os.chdir(tmp)
+            os.chdir("single")
+            cli.main(run)
+            os.chdir(tmp)
+            written = sorted(os.listdir("p0/out"))
+            out["cli_pipeline"] = {"queries": scale.stats_query, "background": scale.stats_self,
+                                   "artifacts": written, "launches": launched}
+            checks["(d) only process 0 wrote"] = not os.path.exists("p1/out")
+            checks["(d) artifacts byte-equal to the one-process mesh"] = (
+                written == sorted(os.listdir("mesh/out")) and all(
+                    Path("p0/out", name).read_bytes() == Path("mesh/out", name).read_bytes()
+                    for name in written))
+            same = [name for name in written
+                    if Path("p0/out", name).read_bytes() == Path("single/out", name).read_bytes()]
+            out["cli_pipeline"]["byte_equal_to_single_card"] = same
+            from seekr_tpu_torch.io.fast_csv import read_labeled_csv
+
+            r_pod = read_labeled_csv("p0/out/pearson.csv").values
+            r_one = read_labeled_csv("single/out/pearson.csv").values
+            finite = np.isfinite(r_pod)
+            err = float(np.abs(r_pod[finite] - r_one[finite]).max()) if finite.any() else 0.0
+            out["cli_pipeline"]["pearson_max_abs_vs_single_card"] = err
+            checks["(d) counts and norm vectors byte-equal to the single card, r within "
+                   "1e-5"] = ({"counts1.csv", f"mean_{PIPELINE_K}mers.npy",
+                               f"std_{PIPELINE_K}mers.npy"} <= set(same) and err <= 1e-5
+                              and np.array_equal(finite, np.isfinite(r_one)))
+            checks["(d) the processes launched count_kmers_smem"] = (
+                not cuda or launched["count_kmers_smem"] > 0)
+        finally:
+            stop_children(procs)
+            os.chdir(home)
+
+    out["walls_s"] = walls
+    out["checks"] = checks
+    log(json.dumps(out))
+    state["processes"] = out
+    failures = [name for name, ok in checks.items() if not ok]
+    if failures:
+        raise AssertionError(f"process checks failed: {failures}")
+
+
 PHASES = (phase_env, phase_kernels, phase_pipeline, phase_counter, phase_timing,
-          phase_stats, phase_serve, phase_leiden, phase_workflow, phase_plots, phase_mesh)
+          phase_stats, phase_serve, phase_leiden, phase_workflow, phase_plots, phase_mesh,
+          phase_processes)
 
 
-def run(device, scale, seed: int = 0) -> dict:
-    """Run every phase in order; any failure raises.  Returns the state."""
+def run(device, scale, seed: int = 0, phases=PHASES) -> dict:
+    """Run ``phases`` in order; any failure raises.  Returns the state."""
     state = {"seed": seed, "phase_s": {}}
-    for phase in PHASES:
+    for phase in phases:
         log(f"== {phase.__name__}")
         t0 = time.perf_counter()
         phase(device, scale, state)
@@ -3287,6 +3792,9 @@ def run(device, scale, seed: int = 0) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--child"]:
+        return child_main(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)

@@ -28,10 +28,10 @@ the same rule.  ``doctor`` probes the card ``--device`` names in a subprocess.
 The plots and ``graph`` need matplotlib, seaborn and networkx, which are
 imported only when a command draws.  ``-dp``/``-kp`` build a device mesh in
 this process, of CUDA cards or, with ``--device cpu``, of CPU shards
-(``parallel.mesh``); the multi-host flags (``--coordinator``,
-``--num_processes``, ``--process_id``) come with the port's slice 9 and are
-refused with an error that names it.  A bare command prints its help; a bare
-``doctor`` runs.
+(``parallel.mesh``); with the multi-host flags of ``serve`` and ``pipeline``
+(``--coordinator``, ``--num_processes``, ``--process_id``) the mesh spans one
+process per host (``parallel.comm``), the CPU's shards split evenly over them.
+A bare command prints its help; a bare ``doctor`` runs.
 """
 
 from __future__ import annotations
@@ -351,18 +351,6 @@ def _device(args):
     from seekr_tpu_torch.utils.device import resolve_device
 
     return resolve_device(args.device)
-
-
-def _refuse_multi_host(parser, args):
-    """Refuse the multi-host bootstrap flags: a coordinator, a process id, or
-    more than one process."""
-    from seekr_tpu_torch.parallel.mesh import MULTI_HOST
-
-    for flag in ("coordinator", "num_processes", "process_id"):
-        value = getattr(args, flag)
-        if value is None or (flag == "num_processes" and value <= 1):
-            continue
-        parser.error(f"--{flag} {value}: {MULTI_HOST}")
 
 
 # -- kmer_counts -------------------------------------------------------------
@@ -751,25 +739,37 @@ def console_serve(argv=None):
                         help="shard the target corpus over this many devices "
                              "(needs -t/--targets).")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-host bootstrap address (the port's slice 9).")
+                        help="host0 address for multi-host bootstrap, e.g. "
+                             "host0:8476 (extension).")
     parser.add_argument("--num_processes", default=None, type=int,
-                        help="multi-host process count (the port's slice 9).")
+                        help="total processes for multi-host bootstrap "
+                             "(extension).")
     parser.add_argument("--process_id", default=None, type=int,
-                        help="multi-host process id (the port's slice 9).")
+                        help="this process's id for multi-host bootstrap "
+                             "(extension).")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_multi_host(parser, args)
+    multi = (args.num_processes or 0) > 1
     if (args.data_parallel or 0) > 1 and not args.targets:
         parser.error("-dp requires -t/--targets: the sharded corpus "
                      "is the thing being distributed")
+    if multi and (args.data_parallel or 0) <= 1:
+        # without a mesh no process would follow: N independent servers of the
+        # whole corpus would come up instead of one pod
+        parser.error("--num_processes > 1 requires -dp N covering "
+                     "all devices (a multi-host serve must shard "
+                     "the corpus over one global mesh)")
     if args.save_corpus and not args.targets:
         parser.error("--save-corpus requires -t/--targets: the snapshot "
                      "is the loaded target corpus")
 
+    from seekr_tpu_torch.parallel import comm
     from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
     from seekr_tpu_torch.serve import SeekrService, serve_forever
 
     device = _device(args)
-    mesh = build_mesh_from_flags(args.data_parallel, device=device)
+    mesh = build_mesh_from_flags(args.data_parallel, coordinator=args.coordinator,
+                                 num_processes=args.num_processes,
+                                 process_id=args.process_id, device=device)
     fitres = None
     if args.fitres_file:
         fitres = parse_fitres_csv(args.fitres_file, args.fitres_type)
@@ -778,8 +778,20 @@ def console_serve(argv=None):
                        coalesce=not args.no_coalesce, mesh=mesh,
                        mem_budget_bytes=args.mem_budget,
                        grow_quantum=args.grow_quantum, device=device)
+    if mesh is not None and mesh.spans_processes and comm.process_index() != 0:
+        # a pod follower: mirror the leader's device calls (its warmup included)
+        # until the leader's shutdown releases this process
+        print(f"seekr_tpu_torch serve: process {comm.process_index()} "
+              "following leader", flush=True)
+        svc.follow()
+        return
     if args.save_corpus:
-        svc.save_corpus(args.save_corpus)
+        # on a pod the followers wait in follow(): release them even when the
+        # save fails, or they would wait in a broadcast forever
+        try:
+            svc.save_corpus(args.save_corpus)
+        finally:
+            svc.stop_followers()
         print(f"seekr_tpu_torch serve: corpus snapshot written to "
               f"{args.save_corpus} (serve with -t {args.save_corpus})", flush=True)
         return
@@ -926,13 +938,15 @@ def console_pipeline(argv=None):
     parser.add_argument("-kp", "--kmer_parallel", default=1, type=int,
                         help="devices on the mesh 'kmer' axis.")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-host bootstrap address (the port's slice 9).")
+                        help="host0 address for multi-host bootstrap, e.g. "
+                             "host0:8476 (extension).")
     parser.add_argument("--num_processes", default=None, type=int,
-                        help="multi-host process count (the port's slice 9).")
+                        help="total processes for multi-host bootstrap "
+                             "(extension).")
     parser.add_argument("--process_id", default=None, type=int,
-                        help="multi-host process id (the port's slice 9).")
+                        help="this process's id for multi-host bootstrap "
+                             "(extension).")
     args = _parse_args_or_exit(parser, argv)
-    _refuse_multi_host(parser, args)
 
     from seekr_tpu_torch.models.workflow import run_workflow
     from seekr_tpu_torch.utils.profiler import trace_session
@@ -947,7 +961,8 @@ def console_pipeline(argv=None):
                      leiden_algo=args.leiden_algo,
                      leiden_resolution=float(args.leiden_resolution),
                      data_parallel=args.data_parallel, kmer_parallel=args.kmer_parallel,
-                     device=device)
+                     coordinator=args.coordinator, num_processes=args.num_processes,
+                     process_id=args.process_id, device=device)
 
 
 # -- domain_pearson ----------------------------------------------------------

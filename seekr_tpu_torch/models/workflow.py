@@ -15,11 +15,13 @@ each device stage feeding the next, and writes the artifacts once at the end:
   5. empirical p-values (sorted null + searchsorted; float64, host)
   6. multiple-test correction (host), and optionally Leiden communities
 
-``data_parallel``/``kmer_parallel`` build a device mesh in this process and
-route both Pearson stages through the data-sharded streamed GEMM
-(``parallel.dist.stream_pearson_sharded``); the multi-host arguments
-(``coordinator``, ``num_processes`` > 1) come with the port's slice 9 and raise.
-One process writes every artifact.
+``data_parallel``/``kmer_parallel`` build a device mesh and route both Pearson
+stages through the data-sharded streamed GEMM
+(``parallel.dist.stream_pearson_sharded``); ``coordinator``/``num_processes``/
+``process_id`` first join the processes of a mesh across hosts
+(``parallel.comm.init_distributed``).  Every process computes (the collectives
+need all of them) and only process 0 writes: writers on a shared filesystem
+would interleave the artifacts.
 
 Scale: the p-value and corrected matrices are held in memory.  Above ~50k
 transcripts use the streamed chain instead (``find_pval --stream -bo
@@ -39,7 +41,7 @@ from seekr_tpu_torch.models.pearson import mirror_upper_inplace, pearson
 from seekr_tpu_torch.ops.ecdf import empirical_pvals
 from seekr_tpu_torch.ops.normalize import normalize_counts
 from seekr_tpu_torch.ops.pearson import pearson_blocked
-from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
+from seekr_tpu_torch.parallel.comm import process_index
 from seekr_tpu_torch.stats.adj_pval import adj_pval
 from seekr_tpu_torch.utils.adj import triu_values
 from seekr_tpu_torch.utils.device import resolve_device
@@ -90,6 +92,7 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
     a fixed seed).  ``pvals`` and ``pvals_adjusted`` are ``LabeledMatrix``es.
     """
     from seekr_tpu_torch import native
+    from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
 
     if background is None:
         raise ValueError("a background fasta is required (norm vectors + "
@@ -106,7 +109,9 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
         # before the expensive stages, not after them
         raise ValueError(f"leiden_algo must be one of {list(native.ALGORITHMS)}, "
                          f"got {leiden_algo!r}")
-    os.makedirs(outdir, exist_ok=True)
+    writer = process_index() == 0
+    if writer:
+        os.makedirs(outdir, exist_ok=True)
 
     with stage_timer("workflow/background"):
         # the background is parsed and counted once; its two consumers differ
@@ -117,8 +122,9 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
         # [4^k] vectors cross to the host
         _, mean_d, std_d = normalize_counts(raw, log2_mode=log2, mean=True, std=True)
         mean, std = mean_d.cpu().numpy(), std_d.cpu().numpy()
-        np.save(os.path.join(outdir, f"mean_{k}mers.npy"), mean)
-        np.save(os.path.join(outdir, f"std_{k}mers.npy"), std)
+        if writer:
+            np.save(os.path.join(outdir, f"mean_{k}mers.npy"), mean)
+            np.save(os.path.join(outdir, f"std_{k}mers.npy"), std)
         # epilogue 2, the null set: Log2.post with the computed vectors, as
         # find_dist does; the counts stay on the card into the GEMM
         bkg_dev, _, _ = normalize_counts(raw, log2_mode="Log2.post", mean=mean, std=std)
@@ -179,19 +185,20 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
                                                setseed=True)
                 del gmat
 
-    with stage_timer("workflow/artifacts"):
-        write_labeled_csv(os.path.join(outdir, "counts1.csv"), c1.counts, headers1,
-                          c1.kmers)
-        if c2 is not c1:
-            write_labeled_csv(os.path.join(outdir, "counts2.csv"), c2.counts, headers2,
-                              c2.kmers)
-        write_labeled_csv(os.path.join(outdir, "pearson.csv"), sim, headers1, headers2)
-        pval_mat.to_csv(os.path.join(outdir, "pvals.csv"))
-        if adj_mat is not None:
-            adj_mat.to_csv(os.path.join(outdir, "pvals_adjusted.csv"))
-        if membership is not None:
-            _write_communities(os.path.join(outdir, "communities.csv"), headers1,
-                               membership)
+    if writer:
+        with stage_timer("workflow/artifacts"):
+            write_labeled_csv(os.path.join(outdir, "counts1.csv"), c1.counts, headers1,
+                              c1.kmers)
+            if c2 is not c1:
+                write_labeled_csv(os.path.join(outdir, "counts2.csv"), c2.counts, headers2,
+                                  c2.kmers)
+            write_labeled_csv(os.path.join(outdir, "pearson.csv"), sim, headers1, headers2)
+            pval_mat.to_csv(os.path.join(outdir, "pvals.csv"))
+            if adj_mat is not None:
+                adj_mat.to_csv(os.path.join(outdir, "pvals_adjusted.csv"))
+            if membership is not None:
+                _write_communities(os.path.join(outdir, "communities.csv"), headers1,
+                                   membership)
 
     return {
         "mean": mean, "std": std, "null_sample": null_sample,

@@ -24,8 +24,10 @@ newline-delimited JSON protocol of seekr_tpu (same requests, same responses):
 
 The socket is created owner-only (0600).  ``mesh=`` (a ``parallel.mesh.Mesh``)
 row-shards the standardized targets over every mesh device and selects the
-top-k in two stages (``parallel.dist.ShardedScorer``); pod serving across
-processes (``follow``) comes with the port's slice 9.  torch is imported only
+top-k in two stages (``parallel.dist.ShardedScorer``).  On a mesh across
+processes (pod serving, ``parallel.dist.PodScorer``) every process builds the
+same service; process 0 answers the socket and the others mirror its device
+calls in ``follow`` until its shutdown releases them.  torch is imported only
 where the card is used, so a process that only calls ``request`` never imports
 it.
 """
@@ -240,6 +242,13 @@ class SeekrService:
                 print(f"seekr_tpu_torch serve: WARNING {over} -- queries may run "
                       "out of device memory; raise mem_budget_bytes or shard over "
                       "a mesh (-dp N)", flush=True)
+            from seekr_tpu_torch.parallel.dist import PodScorer
+
+            if isinstance(self._scorer, PodScorer) and self._scorer.is_leader:
+                # the liveness beacon under the device lock: followers bound their
+                # idle wait on it (follow), and a dead follower is found within
+                # one interval even with no traffic
+                self._scorer.heartbeat_start(self._lock)
 
     def _quantize_pad(self, tstd):
         """Pad a standardized target matrix with zero rows up to the next
@@ -335,14 +344,35 @@ class SeekrService:
         return path
 
     def follow(self) -> None:
-        """Follower entry point of pod serving (one process per host), which
-        comes with the port's slice 9: raises."""
-        from seekr_tpu_torch.parallel.mesh import MULTI_HOST
+        """Follower entry point of pod serving (a mesh across processes).
 
-        raise NotImplementedError(f"SeekrService.follow: {MULTI_HOST}")
+        Every process builds the SAME service (the same artifacts, targets and
+        mesh); process 0 runs the socket server while every other process calls
+        ``follow()`` and mirrors the leader's device calls until the leader's
+        shutdown releases it (``parallel.dist.PodScorer``).  Returns after STOP.
+        The leader heartbeats, so the idle wait is bounded at 3x the pod
+        watchdog's timeout: a dead leader raises here instead of pinning this
+        process in a collective forever.
+        """
+        from seekr_tpu_torch.parallel.dist import PodScorer
+
+        if not isinstance(self._scorer, PodScorer):
+            raise ValueError("follow() is for multi-host mesh serving: "
+                             "this service has no pod scorer")
+        if self._scorer.is_leader:
+            raise ValueError("process 0 is the leader: run the socket "
+                             "server here, follow() on the others")
+        t = self._scorer.timeout_s  # None = watchdog disabled
+        self._scorer.follow(header_timeout=3 * t if t else None)
 
     def stop_followers(self) -> None:
-        """No-op: a mesh in one process has no followers to release."""
+        """Release pod followers (a no-op without them).  Leader-only; call once,
+        after the last device call."""
+        from seekr_tpu_torch.parallel.dist import PodScorer
+
+        if isinstance(self._scorer, PodScorer) and self._scorer.is_leader:
+            with self._lock:  # never interleave STOP with a device call
+                self._scorer.stop()
 
     def _counter(self, infasta=None):
         from seekr_tpu_torch.models.counter import KmerCounter

@@ -65,6 +65,27 @@ def test_phases_rehearse_on_cpu():
     assert mesh["checks"] and all(mesh["checks"].values())
     assert (mesh["cards"], mesh["shards"]) == (0, 4) and mesh["cli_dp"] == "-dp 4 ran"
     assert mesh["kmer_axis"]["k"] == 9 and mesh["long_sequence"]["bases"] == 20_000
+    # phase 12 ran the mesh across two CPU processes and held every check
+    procs = state["processes"]
+    assert procs["checks"] and all(procs["checks"].values())
+    assert procs["backends"] == {"control": "gloo", "data": "gloo"}
+    assert procs["killed_follower"]["leader_rc"] == 0
+
+
+@pytest.mark.parametrize("visible, want", [(None, ["0", "1"]), ("4,5,6,7", ["4", "5"]),
+                                            ("GPU-a, GPU-b", ["GPU-a", "GPU-b"])])
+def test_child_env_puts_each_process_on_its_own_visible_card(monkeypatch, visible, want):
+    # with a card each, process pid gets the pid-th card this process may use
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    got = [chip_smoke.child_env(pid, 4)["CUDA_VISIBLE_DEVICES"] for pid in range(2)]
+    assert got == want
+    # one card: both processes share it, under the parent's own setting
+    shared = chip_smoke.child_env(1, 1)
+    assert shared.get("CUDA_VISIBLE_DEVICES") == visible
+    assert shared["PYTHONPATH"] == str(ROOT)
 
 
 def test_direct_bh_is_benjamini_hochberg():

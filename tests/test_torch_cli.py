@@ -148,18 +148,75 @@ def test_stats_chain(work, capsys):
     assert "is a symmetric matrix" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,slice_name", [
-    (["pipeline", "q.fa", "-b", "b.fa", "--coordinator", "h:1"], "slice 9"),
-    (["pipeline", "q.fa", "-b", "b.fa", "--num_processes", "2"], "slice 9"),
-    (["pipeline", "q.fa", "-b", "b.fa", "--process_id", "0"], "slice 9"),
-    (["pipeline", "q.fa", "-b", "b.fa", "-dp", "2", "--coordinator", "h:1",
-      "--num_processes", "2", "--process_id", "0"], "slice 9"),
-])
-def test_later_slices_are_refused(argv, slice_name, capsys):
+@pytest.mark.parametrize("argv,want", [
+    (["--coordinator", "h:1"], {"coordinator": "h:1"}),
+    (["--num_processes", "2"], {"num_processes": 2}),
+    (["--process_id", "0"], {"process_id": 0}),
+    (["-dp", "2", "--coordinator", "h:1", "--num_processes", "2", "--process_id", "0"],
+     {"data_parallel": 2, "coordinator": "h:1", "num_processes": 2, "process_id": 0}),
+], ids=["coordinator", "num_processes", "process_id", "all"])
+def test_pipeline_passes_the_multi_host_flags(argv, want, monkeypatch):
+    from seekr_tpu_torch.models import workflow
+
+    seen = {}
+    monkeypatch.setattr(workflow, "run_workflow", lambda *a, **kw: seen.update(kw))
+    cli.main(["pipeline", "q.fa", "-b", "b.fa"] + argv + CPU)
+    base = {"data_parallel": None, "coordinator": None, "num_processes": None,
+            "process_id": None}
+    assert {key: seen[key] for key in base} == {**base, **want}
+
+
+def test_serve_num_processes_without_dp_is_seekr_tpus_error(capsys):
+    # refused before any rendezvous (seekr_tpu/cli.py:546-555)
     with pytest.raises(SystemExit) as exc:
-        cli.main(argv + CPU)
+        cli.main(["serve", "m.npy", "s.npy", "-t", "t.fa", "--num_processes", "2",
+                  "--coordinator", "127.0.0.1:1"] + CPU)
     assert exc.value.code == 2
-    assert slice_name in capsys.readouterr().err
+    assert ("--num_processes > 1 requires -dp N covering all devices (a multi-host "
+            "serve must shard the corpus over one global mesh)") in capsys.readouterr().err
+
+
+def test_pipeline_across_two_processes_writes_on_process_0_only(tmp_path):
+    """``pipeline -dp 2 --num_processes 2`` in two processes (gloo on
+    127.0.0.1, a CPU shard each), each in a working directory of its own: only
+    process 0 writes, and its artifacts are byte-equal to one process holding
+    the same (2, 1) mesh."""
+    import socket
+
+    q = random_fasta(tmp_path / "q.fa", 9, 41)
+    b = random_fasta(tmp_path / "b.fa", 30, 42)
+    args = ["pipeline", q, "-b", b, "-k", "3", "-sd", "0", "-dp", "2"] + CPU
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dirs = [tmp_path / f"p{pid}" for pid in range(2)]
+    procs = []
+    for pid, cwd in enumerate(dirs):
+        cwd.mkdir()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "seekr_tpu_torch.cli"] + args
+            + ["-o", "out", "--num_processes", "2", "--process_id", str(pid),
+               "--coordinator", f"127.0.0.1:{port}"],
+            cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={"PYTHONPATH": str(ROOT), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}))
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    assert not (dirs[1] / "out").exists()
+    (tmp_path / "one").mkdir()
+    cli.main(args + ["-o", str(tmp_path / "one" / "out")])
+    written = sorted(f.name for f in (dirs[0] / "out").iterdir())
+    assert written == sorted(f.name for f in (tmp_path / "one" / "out").iterdir())
+    assert "pvals_adjusted.csv" in written
+    for name in written:
+        assert (dirs[0] / "out" / name).read_bytes() == \
+            (tmp_path / "one" / "out" / name).read_bytes(), name
 
 
 @pytest.mark.parametrize("command", ["kmer_counts", "norm_vectors", "find_dist"])

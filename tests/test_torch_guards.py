@@ -42,6 +42,19 @@ def test_port_imports_neither_jax_nor_seekr_tpu(path):
         assert top not in ("jax", "jaxlib", "seekr_tpu"), f"{path} imports {name}"
 
 
+def test_the_process_layer_and_its_workers_import_no_jax():
+    # the module of the mesh across processes is held by the test above, and the
+    # worker processes of tests/test_torch_multiprocess.py (that file run as a
+    # script) import neither jax nor seekr_tpu: only its tests do, inside them
+    assert ROOT / "seekr_tpu_torch" / "parallel" / "comm.py" in PORT_FILES
+    tree = ast.parse((ROOT / "tests" / "test_torch_multiprocess.py").read_text())
+    top = [alias.name for node in tree.body if isinstance(node, ast.Import)
+           for alias in node.names]
+    top += [node.module for node in tree.body if isinstance(node, ast.ImportFrom)]
+    assert "torch" in top
+    assert not [name for name in top if name.split(".")[0] in ("jax", "jaxlib", "seekr_tpu")]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_needs_neither_pandas_nor_tqdm(path):
     # pandas nowhere; tqdm only inside a function, behind a progress flag (torch

@@ -116,14 +116,78 @@ def test_build_mesh_from_flags_refusals(monkeypatch):
     with pytest.raises(ValueError, match=r"requested 4 devices \(data_parallel=4 x "
                                          r"kmer_parallel=1\), have 0"):
         build_mesh_from_flags(4)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    # a process needs its index and a rendezvous: without RANK, or without a
+    # coordinator and MASTER_ADDR, the bootstrap raises before joining anything
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="RANK is not set"):
+        dist.init_distributed("host0:8476", 2)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         build_mesh_from_flags(2, num_processes=2, process_id=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        build_mesh_from_flags(2, coordinator="host0:8476", device="cpu")
+    assert dist.process_index() == 0 and dist.process_count() == 1
     dist.init_distributed()
     dist.init_distributed(num_processes=1)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        dist.init_distributed("host0:8476", 2, 0)
+
+
+def test_a_bare_coordinator_is_ignored():
+    # as in seekr_tpu (parallel/mesh.py:61-89): only num_processes > 1 bootstraps
+    mesh = build_mesh_from_flags(2, coordinator="host0:8476", device="cpu")
+    assert mesh.devices.shape == (2, 1) and not mesh.spans_processes
+    assert build_mesh_from_flags(None, coordinator="host0:8476", device="cpu") is None
+
+
+def test_a_multi_host_mesh_must_use_every_device(monkeypatch):
+    # four processes of one card each (the exchange of device names stubbed)
+    from seekr_tpu_torch.parallel import comm
+
+    monkeypatch.setattr(comm, "process_count", lambda: 4)
+    monkeypatch.setattr(comm, "gather_objects", lambda names: [names] * 4)
+    monkeypatch.setattr(mesh_mod, "_visible_cards", lambda: [torch.device("cuda", 0)])
+    with pytest.raises(ValueError, match="multi-host runs must use all 4 devices: set "
+                                         "data_parallel x kmer_parallel == 4"):
+        build_mesh_from_flags(2)
+    with pytest.raises(ValueError, match=r"requested 8 devices .* have 4"):
+        build_mesh_from_flags(4, 2)
+    mesh = build_mesh_from_flags(2, 2)
+    assert mesh.owners.tolist() == [[0, 1], [2, 3]] and mesh.spans_processes
+    assert mesh.local_positions == [(0, 0)] and mesh.first == torch.device("cuda", 0)
+    # CPU shards split evenly over the processes
+    with pytest.raises(ValueError, match="6 CPU shards do not divide over 4 processes"):
+        build_mesh_from_flags(6, device="cpu")
+    mesh = build_mesh_from_flags(8, device="cpu")
+    assert mesh.owners.ravel().tolist() == [0, 0, 1, 1, 2, 2, 3, 3]
+
+
+@pytest.mark.parametrize("identities,want", [
+    ([["cpu"], ["cpu"]], "gloo"),                       # CPU processes
+    ([["GPU-a"], ["GPU-a"]], "gloo"),                   # two processes on one card
+    ([["GPU-a"], ["GPU-b"]], "nccl"),                   # a card each
+    ([["GPU-a", "GPU-b"], ["GPU-c", "GPU-d"]], "nccl"),  # two cards each
+    ([["GPU-a", "GPU-b"], ["GPU-b", "GPU-c"]], "gloo"),  # one card shared
+    ([["GPU-a", "GPU-a"], ["GPU-b"]], "nccl"),          # a card repeated in one process
+    ([["GPU-a"], ["cpu"]], "gloo"),
+])
+def test_data_backend_rule(identities, want):
+    from seekr_tpu_torch.parallel.comm import data_backend
+
+    assert data_backend(identities) == want
+
+
+def test_addressable_shards_of_a_mesh_across_processes():
+    # positions of process 1 are held elsewhere: this process fills its own only
+    mesh = mesh_mod.Mesh([[CPU]] * 4, owners=[[0], [1], [0], [1]])
+    assert mesh.spans_processes and mesh.local_positions == [(0, 0), (2, 0)]
+    x = np.arange(8 * 3, dtype=np.float32).reshape(8, 3)
+    t = shard(x, data_sharding(mesh))
+    assert not t.is_fully_addressable and t.addressable_shards is t.shards
+    assert [s.index[0] for s in t.addressable_shards] == [slice(0, 2), slice(4, 6)]
+    np.testing.assert_array_equal(t.addressable_shards[1].data.numpy(), x[4:6])
+    with pytest.raises(RuntimeError, match="spans the devices of several processes"):
+        np.asarray(t)
+    np.testing.assert_array_equal(np.asarray(shard(x, replicated(mesh))), x)
+    assert shard(x, data_sharding(port_mesh())).is_fully_addressable
+    with pytest.raises(ValueError, match="owns no position"):
+        mesh_mod.Mesh([[CPU]] * 2, owners=[[1], [1]])
 
 
 # -- the sharded count and the statistics -------------------------------------

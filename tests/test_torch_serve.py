@@ -320,16 +320,18 @@ def test_query_errors_match_seekr_tpu(artifacts):
             svc.query([])
     with pytest.raises(ValueError, match="4\\^k"):
         serve.SeekrService(str(tmp / "mean.npy"), str(tmp / "std.npy"), k=5, device="cpu")
-    # a mesh needs targets, as in seekr_tpu; pod serving comes with slice 9
+    # a mesh needs targets, as in seekr_tpu
     with pytest.raises(ValueError, match="mesh serving requires targets"):
         serve.SeekrService(str(tmp / "mean.npy"), str(tmp / "std.npy"), k=K,
                            mesh=port_mesh(), device="cpu")
     with pytest.raises(ValueError, match="mesh serving requires targets"):
         jax_serve.SeekrService(str(tmp / "mean.npy"), str(tmp / "std.npy"), k=K,
                                mesh=jax_mesh())
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        port.follow()
-    port.stop_followers()  # a no-op in one process
+    # follow() is a pod follower's (a mesh across processes), as in seekr_tpu
+    for svc in (port, ref):
+        with pytest.raises(ValueError, match=r"follow\(\) is for multi-host mesh serving"):
+            svc.follow()
+        svc.stop_followers()  # a no-op without followers
 
 
 def test_latency_stats(artifacts):
@@ -739,3 +741,28 @@ def test_mesh_budget_is_per_device(artifacts, tied_targets):
             svc.add_targets(seqs_of(rng, 1))
         messages.append(str(exc.value))
     assert messages[0] == messages[1] and "over 8 devices" in messages[0]
+
+
+@pytest.mark.parametrize("env,want", [(None, 300.0), ("7.5", 7.5), ("0", None), ("-1", None),
+                                      ("abc", "error")])
+def test_pod_timeout_parsing_matches_seekr_tpu(monkeypatch, env, want):
+    # SEEKR_TPU_POD_TIMEOUT: default 300 s, 0 or less turns the watchdog off, a
+    # non-number raises seekr_tpu's error; PodScorer takes no collective to build
+    from seekr_tpu.parallel.dist import PodScorer as JaxPodScorer
+    from seekr_tpu_torch.parallel.dist import PodScorer, pod_timeout
+
+    if env is None:
+        monkeypatch.delenv("SEEKR_TPU_POD_TIMEOUT", raising=False)
+    else:
+        monkeypatch.setenv("SEEKR_TPU_POD_TIMEOUT", env)
+    tstd = np.zeros((5, 4 ** K), np.float32)
+    if want == "error":
+        message = r"SEEKR_TPU_POD_TIMEOUT must be a number of seconds \(0 disables"
+        with pytest.raises(ValueError, match=message):
+            pod_timeout()
+        with pytest.raises(ValueError, match=message):
+            JaxPodScorer(jax_mesh(), tstd)
+        return
+    assert pod_timeout() == want == JaxPodScorer(jax_mesh(), tstd).timeout_s
+    assert PodScorer(port_mesh(), tstd).timeout_s == want
+    assert pod_timeout(2) == 2.0 == JaxPodScorer(jax_mesh(), tstd, timeout_s=2).timeout_s

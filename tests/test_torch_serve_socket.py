@@ -376,9 +376,9 @@ def test_serve_save_corpus_loads_in_seekr_tpu(artifacts, tmp_path):
 
 @pytest.mark.parametrize("flags,message", [
     (["-dp", "2"], "-dp requires -t/--targets"),
-    (["--coordinator", "host0:8476"], "slice 9"),
-    (["--num_processes", "2"], "slice 9"),
-    (["--process_id", "1"], "slice 9"),
+    # seekr_tpu's checks of a pod (cli.py:535-555), made before any rendezvous
+    (["--num_processes", "2"], "--num_processes > 1 requires -dp N covering all devices"),
+    (["--num_processes", "2", "-dp", "2"], "-dp requires -t/--targets"),
     (["--save-corpus", "c.npz"], "requires -t/--targets"),
 ])
 def test_serve_refusals(artifacts, capsys, flags, message):

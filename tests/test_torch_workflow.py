@@ -147,21 +147,28 @@ def test_realpath_spelling_is_a_self_comparison(tmp_path):
     assert res["communities"] is not None and res["counts2"] is res["counts1"]
 
 
-def test_what_raises(tmp_path):
+def test_what_raises(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="background"):
         run_workflow(QUERIES, device="cpu")
     with pytest.raises(ValueError, match="leiden_algo must be one of"):
         run_workflow(QUERIES, background=BACKGROUND, k=2, outdir=str(tmp_path / "never"),
                      leiden=True, leiden_algo="RBERVertexPartion", device="cpu")
     assert not (tmp_path / "never").exists()  # refused before any stage
-    # the multi-host arguments come with slice 9 (a mesh in one process runs)
-    for kwargs in ({"coordinator": "h:1"}, {"num_processes": 2, "process_id": 0},
-                   {"data_parallel": 2, "coordinator": "h:1"},
-                   {"data_parallel": 2, "kmer_parallel": 2, "num_processes": 4}):
-        with pytest.raises(NotImplementedError, match="slice 9"):
+    # a process of a multi-host run needs its index and a rendezvous address:
+    # without them the bootstrap raises before any stage
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    for kwargs, match in (({"num_processes": 2, "process_id": 0}, "MASTER_ADDR"),
+                          ({"data_parallel": 2, "kmer_parallel": 2, "num_processes": 4},
+                           "RANK is not set")):
+        with pytest.raises(ValueError, match=match):
             run_workflow(QUERIES, background=BACKGROUND, k=2, outdir=str(tmp_path / "m"),
                          device="cpu", **kwargs)
     assert not (tmp_path / "m").exists()
+    # a bare coordinator is ignored, as in seekr_tpu: one process, one writer
+    run_workflow(QUERIES, background=BACKGROUND, k=2, outdir=str(tmp_path / "m"),
+                 device="cpu", coordinator="h:1")
+    assert (tmp_path / "m" / "pvals.csv").exists()
 
 
 @pytest.mark.parametrize("mesh", [{"data_parallel": 4}, {"data_parallel": 2, "kmer_parallel": 2}],
