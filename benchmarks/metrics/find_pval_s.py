@@ -1,0 +1,8 @@
+"""Mean seconds of a find_pval call in the window (the harness's span)."""
+
+from kbench.readers import window_spans
+
+
+def read(rec):
+    spans = window_spans(rec, "find_pval")
+    return sum(spans) / len(spans) if spans else None
