@@ -26,6 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from seekr_tpu_torch.utils.profiler import span
+
 ALPHABET_AGTC = "AGTC"
 INVALID = 4  # any value >= 4 marks a non-alphabet base; also used for padding
 
@@ -137,12 +139,13 @@ def encode_seqs(
     power of two (>= ``row_multiple``); dummy rows have length 0 and produce
     all-zero count rows, which are dropped on gather.
     """
-    lut = base_lut(alphabet)
-    lengths = np.fromiter((len(s) for s in seqs), dtype=np.int32, count=len(seqs))
+    with span("fasta.encode"):
+        lut = base_lut(alphabet)
+        lengths = np.fromiter((len(s) for s in seqs), dtype=np.int32, count=len(seqs))
 
-    buckets = _assemble_buckets(lengths, k, min_bucket_len, row_multiple,
-                                max_rows_per_bucket,
-                                _py_encode_chunk(seqs, lut))
+        buckets = _assemble_buckets(lengths, k, min_bucket_len, row_multiple,
+                                    max_rows_per_bucket,
+                                    _py_encode_chunk(seqs, lut))
     return EncodedSeqs(buckets=buckets, n_seqs=len(seqs), alphabet=alphabet, lengths=lengths)
 
 
@@ -244,6 +247,13 @@ def encode_fasta(
     ``lengths``/``n_seqs`` still describe the whole file): the counter keeps
     long sequences out of the buckets this way.
     """
+    with span("fasta.encode"):
+        return _encode_fasta(path, k, alphabet, min_bucket_len, row_multiple,
+                             max_rows_per_bucket, include_ids)
+
+
+def _encode_fasta(path, k, alphabet, min_bucket_len, row_multiple, max_rows_per_bucket,
+                  include_ids) -> EncodedSeqs:
     if alphabet == ALPHABET_AGTC and _native_parse_is_safe(path):
         from seekr_tpu_torch import native
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Iterable, Iterator, List, Optional, Tuple
 
+from seekr_tpu_torch.utils.profiler import span
+
 
 class Reader:
     """Read a FASTA file into headers + single-line upper-case sequences.
@@ -100,10 +102,11 @@ class Reader:
 
     def get_lines(self) -> List[str]:
         if self.data is None:  # parse once per Reader instance
-            self.data = self._native_lines()
-        if self.data is None:
-            self._read_data()
-            self._upper_seq_per_line()
+            with span("fasta.read"):
+                self.data = self._native_lines()
+                if self.data is None:
+                    self._read_data()
+                    self._upper_seq_per_line()
         return self.data
 
     def get_seqs(self) -> List[str]:

@@ -28,6 +28,7 @@ from seekr_tpu_torch.ops.count import (count_kmers_device, count_kmers_host,
                                        count_kmers_long)
 from seekr_tpu_torch.ops.normalize import LOG2_MODES, normalize_counts
 from seekr_tpu_torch.utils.device import resolve_device
+from seekr_tpu_torch.utils.profiler import span
 
 
 class Log2:
@@ -203,24 +204,25 @@ class KmerCounter:
         ``self.counts`` is not set.  ``nan_check=False`` skips the NaN probe,
         a scalar fetch that waits for the device.
         """
-        raw = self._raw_counts_device()
-        counts, mean, std = normalize_counts(raw, log2_mode=self.log2,
-                                             mean=self.mean, std=self.std)
-        if self.mean is True and mean is not None:
-            self.mean = mean.cpu().numpy()
-        if self.std is True and std is not None:
-            self.std = std.cpu().numpy()
-        if nan_check and self.std is not False and bool(torch.isnan(counts).any()):
-            print(
-                "\nWARNING: You have `np.nan` values in your counts "
-                "after standardization. This is likely due to "
-                "a kmer not appearing in any of your sequences. "
-                "Try: \n1) using a smaller kmer size, \n2) beginning "
-                "with a larger set of sequences, \n3) passing "
-                "precomputed normalization vectors from a larger "
-                "data set (e.g. GENCODE)."
-            )
-        return counts
+        with span("counter.count"):
+            raw = self._raw_counts_device()
+            counts, mean, std = normalize_counts(raw, log2_mode=self.log2,
+                                                 mean=self.mean, std=self.std)
+            if self.mean is True and mean is not None:
+                self.mean = mean.cpu().numpy()
+            if self.std is True and std is not None:
+                self.std = std.cpu().numpy()
+            if nan_check and self.std is not False and bool(torch.isnan(counts).any()):
+                print(
+                    "\nWARNING: You have `np.nan` values in your counts "
+                    "after standardization. This is likely due to "
+                    "a kmer not appearing in any of your sequences. "
+                    "Try: \n1) using a smaller kmer size, \n2) beginning "
+                    "with a larger set of sequences, \n3) passing "
+                    "precomputed normalization vectors from a larger "
+                    "data set (e.g. GENCODE)."
+                )
+            return counts
 
     def get_counts(self) -> np.ndarray:
         """Generate the (normalized) count matrix for the fasta file."""

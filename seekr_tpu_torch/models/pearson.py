@@ -13,6 +13,7 @@ import torch
 
 from seekr_tpu_torch.io.stream import STREAM_CELL_THRESHOLD
 from seekr_tpu_torch.ops.pearson import pearson_blocked, pearson_device
+from seekr_tpu_torch.utils.profiler import span
 
 
 def pearson(counts1, counts2, row_standardize: bool = True,
@@ -24,29 +25,31 @@ def pearson(counts1, counts2, row_standardize: bool = True,
     self-comparison (the same object, or host arrays of equal content) is made
     exactly symmetric from its upper triangle.
     """
-    same = counts2 is counts1
-    c1 = counts1 if isinstance(counts1, torch.Tensor) else np.asarray(counts1, dtype=np.float32)
-    if not same and not isinstance(counts1, torch.Tensor) \
-            and not isinstance(counts2, torch.Tensor) \
-            and np.shape(counts1) == np.shape(counts2):
-        # equal-content host arrays (two loads of one artifact) are a
-        # self-comparison too: one standardize, exact symmetry
-        same = _equal_content(np.asarray(counts1), np.asarray(counts2))
-    c2 = c1 if same else (counts2 if isinstance(counts2, torch.Tensor)
-                          else np.asarray(counts2, dtype=np.float32))
-    m1, m2 = c1.shape[0], c2.shape[0]
-    if m1 * m2 > STREAM_CELL_THRESHOLD:
-        dist = pearson_blocked(c1, c2, row_standardize=row_standardize, device=device)
-    else:
-        dist = pearson_device(c1, c2, row_standardize=row_standardize,
-                              device=device).cpu().numpy()
-    if same:
-        # self-similarity is exactly symmetric, like the reference's np.inner;
-        # the canonical value is the upper triangle's
-        mirror_upper_inplace(dist)
-    if outfile:
-        np.save(outfile, dist)
-    return dist
+    with span("pearson"):
+        same = counts2 is counts1
+        c1 = (counts1 if isinstance(counts1, torch.Tensor)
+              else np.asarray(counts1, dtype=np.float32))
+        if not same and not isinstance(counts1, torch.Tensor) \
+                and not isinstance(counts2, torch.Tensor) \
+                and np.shape(counts1) == np.shape(counts2):
+            # equal-content host arrays (two loads of one artifact) are a
+            # self-comparison too: one standardize, exact symmetry
+            same = _equal_content(np.asarray(counts1), np.asarray(counts2))
+        c2 = c1 if same else (counts2 if isinstance(counts2, torch.Tensor)
+                              else np.asarray(counts2, dtype=np.float32))
+        m1, m2 = c1.shape[0], c2.shape[0]
+        if m1 * m2 > STREAM_CELL_THRESHOLD:
+            dist = pearson_blocked(c1, c2, row_standardize=row_standardize, device=device)
+        else:
+            dist = pearson_device(c1, c2, row_standardize=row_standardize,
+                                  device=device).cpu().numpy()
+        if same:
+            # self-similarity is exactly symmetric, like the reference's np.inner;
+            # the canonical value is the upper triangle's
+            mirror_upper_inplace(dist)
+        if outfile:
+            np.save(outfile, dist)
+        return dist
 
 
 def _equal_content(a1: np.ndarray, a2: np.ndarray) -> bool:

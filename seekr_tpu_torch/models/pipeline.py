@@ -20,6 +20,7 @@ from seekr_tpu_torch.ops.count_cuda import split_hi_lo
 from seekr_tpu_torch.ops.normalize import LOG2_POST, check_log2_mode, normalize_graph
 from seekr_tpu_torch.ops.pearson import pearson_graph
 from seekr_tpu_torch.utils.device import resolve_device
+from seekr_tpu_torch.utils.profiler import span
 
 
 class SeekrPipeline:
@@ -69,5 +70,6 @@ class SeekrPipeline:
 
     def forward(self, bases, lengths, mean=None, std=None) -> torch.Tensor:
         """Full pipeline: encoded sequences -> [m, m] Pearson r matrix."""
-        normalized, _, _ = self._normalized(bases, lengths, mean, std)
-        return pearson_graph(normalized)
+        with span("pipeline.forward"):
+            normalized, _, _ = self._normalized(bases, lengths, mean, std)
+            return pearson_graph(normalized)

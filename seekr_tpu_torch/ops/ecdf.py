@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from seekr_tpu_torch.utils.profiler import span
+
 
 def ecdf_sf(background_sorted: torch.Tensor, r: torch.Tensor,
             n_total=None) -> torch.Tensor:
@@ -48,14 +50,16 @@ class SortedBackground:
     """
 
     def __init__(self, background):
-        bkg = np.asarray(background, dtype=np.float64).ravel()
-        self.n_total = len(bkg)
-        self.finite = np.sort(bkg[~np.isnan(bkg)])
+        with span("ecdf.sort"):
+            bkg = np.asarray(background, dtype=np.float64).ravel()
+            self.n_total = len(bkg)
+            self.finite = np.sort(bkg[~np.isnan(bkg)])
 
     def pvals(self, sim) -> np.ndarray:
-        r = np.asarray(sim, dtype=np.float64)
-        le = np.searchsorted(self.finite, r, side="right")
-        return ((len(self.finite) - le) / self.n_total).astype(np.float64)
+        with span("ecdf.search"):
+            r = np.asarray(sim, dtype=np.float64)
+            le = np.searchsorted(self.finite, r, side="right")
+            return ((len(self.finite) - le) / self.n_total).astype(np.float64)
 
 
 def empirical_pvals(background, sim) -> np.ndarray:

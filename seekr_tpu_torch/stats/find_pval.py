@@ -36,6 +36,7 @@ from seekr_tpu_torch.models.counter import KmerCounter
 from seekr_tpu_torch.models.pearson import mirror_upper_inplace, pearson
 from seekr_tpu_torch.ops.ecdf import SortedBackground
 from seekr_tpu_torch.utils.device import resolve_device
+from seekr_tpu_torch.utils.profiler import span
 
 _NO_PVAL = "No p value is calculated. The output is None."
 
@@ -158,80 +159,81 @@ def find_pval(seq1file, seq2file, mean_path, std_path, k_mer, fitres,
     """
     from seekr_tpu_torch.parallel.mesh import build_mesh_from_flags
 
-    device = resolve_device(device)
-    mesh = build_mesh_from_flags(data_parallel, device=device)
-    meanfile = np.load(mean_path)
-    stdfile = np.load(std_path)
-    if len(meanfile) != 4 ** k_mer or len(stdfile) != 4 ** k_mer:
-        print("k_mer size is not compatible with the normalization mean "
-              "and/or std files.")
-        print("Please make sure the normalization mean and std files are "
-              "generated using the same kmer size as specified here in k_mer.")
-        print(_NO_PVAL)
-        return None
+    with span("find_pval"):
+        device = resolve_device(device)
+        mesh = build_mesh_from_flags(data_parallel, device=device)
+        meanfile = np.load(mean_path)
+        stdfile = np.load(std_path)
+        if len(meanfile) != 4 ** k_mer or len(stdfile) != 4 ** k_mer:
+            print("k_mer size is not compatible with the normalization mean "
+                  "and/or std files.")
+            print("Please make sure the normalization mean and std files are "
+                  "generated using the same kmer size as specified here in k_mer.")
+            print(_NO_PVAL)
+            return None
 
-    t1 = KmerCounter(seq1file, mean=mean_path, std=std_path, k=k_mer,
-                     log2=log2, silent=True, device=device)
-    # self-comparison: one counter, one count pass and ONE tensor object, so
-    # pearson standardizes once and mirrors the upper triangle: the p-value
-    # matrix is exactly symmetric and takes adj_pval's triu path, as the
-    # reference's bitwise-symmetric np.inner output does
-    same_file = os.path.realpath(seq1file) == os.path.realpath(seq2file)
-    t2 = t1 if same_file else KmerCounter(seq2file, mean=mean_path,
-                                          std=std_path, k=k_mer,
-                                          log2=log2, silent=True, device=device)
-    c1 = t1.get_counts_device()
-    c2 = c1 if same_file else t2.get_counts_device()
-    if c2 is not c1 and equal_nan(c1, c2):
-        # identical content under different names (copies, hardlinks the
-        # realpath check missed) is the same comparison; the labels (header2)
-        # are kept as parsed, as adj_pval's detector compares them too
-        c2 = c1
+        t1 = KmerCounter(seq1file, mean=mean_path, std=std_path, k=k_mer,
+                         log2=log2, silent=True, device=device)
+        # self-comparison: one counter, one count pass and ONE tensor object, so
+        # pearson standardizes once and mirrors the upper triangle: the p-value
+        # matrix is exactly symmetric and takes adj_pval's triu path, as the
+        # reference's bitwise-symmetric np.inner output does
+        same_file = os.path.realpath(seq1file) == os.path.realpath(seq2file)
+        t2 = t1 if same_file else KmerCounter(seq2file, mean=mean_path,
+                                              std=std_path, k=k_mer,
+                                              log2=log2, silent=True, device=device)
+        c1 = t1.get_counts_device()
+        c2 = c1 if same_file else t2.get_counts_device()
+        if c2 is not c1 and equal_nan(c1, c2):
+            # identical content under different names (copies, hardlinks the
+            # realpath check missed) is the same comparison; the labels (header2)
+            # are kept as parsed, as adj_pval's detector compares them too
+            c2 = c1
 
-    # the counters already parsed both fastas
-    header1 = [h[1:] for h in t1.headers]
-    header2 = [h[1:] for h in t2.headers]
-    for name, header in (("seq1file", header1), ("seq2file", header2)):
-        if len(header) != len(set(header)):
-            print(f"The headers of {name} is not unique.")
-            print("Be carefule during further analysis as there are potential "
-                  "indexing problems.")
+        # the counters already parsed both fastas
+        header1 = [h[1:] for h in t1.headers]
+        header2 = [h[1:] for h in t2.headers]
+        for name, header in (("seq1file", header1), ("seq2file", header2)):
+            if len(header) != len(set(header)):
+                print(f"The headers of {name} is not unique.")
+                print("Be carefule during further analysis as there are potential "
+                      "indexing problems.")
 
-    pval_fn = _pval_fn(fitres, bestfit)
-    if pval_fn is None:
-        return None
+        pval_fn = _pval_fn(fitres, bestfit)
+        if pval_fn is None:
+            return None
 
-    m1, m2 = len(header1), len(header2)
-    do_stream = (stream if stream is not None
-                 else (m1 * m2 > STREAM_CELL_THRESHOLD
-                       and bool(outputname or npy_out)))
-    if do_stream and not (outputname or npy_out):
-        # a forced stream with no sink would compute and discard every value
-        raise ValueError("find_pval(stream=True) writes artifacts only: "
-                         "pass outputname= (csv) and/or npy_out= (.npy)")
-    if do_stream:
-        return _stream_pvals(c1, c2, pval_fn, header1, header2,
-                             outputname, npy_out, stream_block_rows, device, mesh)
+        m1, m2 = len(header1), len(header2)
+        do_stream = (stream if stream is not None
+                     else (m1 * m2 > STREAM_CELL_THRESHOLD
+                           and bool(outputname or npy_out)))
+        if do_stream and not (outputname or npy_out):
+            # a forced stream with no sink would compute and discard every value
+            raise ValueError("find_pval(stream=True) writes artifacts only: "
+                             "pass outputname= (csv) and/or npy_out= (.npy)")
+        if do_stream:
+            return _stream_pvals(c1, c2, pval_fn, header1, header2,
+                                 outputname, npy_out, stream_block_rows, device, mesh)
 
-    if mesh is None:
-        sim = pearson(c1, c2, device=device)
-    else:
-        from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
+        if mesh is None:
+            sim = pearson(c1, c2, device=device)
+        else:
+            from seekr_tpu_torch.parallel.dist import stream_pearson_sharded
 
-        coll = ArrayCollector()
-        # counts2=None on self: one standardize pass, one copy on the mesh
-        stream_pearson_sharded(mesh, c1, coll, counts2=None if c2 is c1 else c2,
-                               block_rows=stream_block_rows)
-        sim = coll.result()
-        if c2 is c1:
-            mirror_upper_inplace(sim)  # exact symmetry, as the single-device path
-    p_values = pval_fn(sim)
-    if npy_out:
-        np.save(npy_out, p_values)
-    pvals = LabeledMatrix(p_values, header1, header2)
-    if outputname:
-        pvals.to_csv(f"{outputname}.csv")
-    return pvals
+            coll = ArrayCollector()
+            # counts2=None on self: one standardize pass, one copy on the mesh
+            stream_pearson_sharded(mesh, c1, coll, counts2=None if c2 is c1 else c2,
+                                   block_rows=stream_block_rows)
+            sim = coll.result()
+            if c2 is c1:
+                mirror_upper_inplace(sim)  # exact symmetry, as the single-device path
+        p_values = pval_fn(sim)
+        if npy_out:
+            np.save(npy_out, p_values)
+        pvals = LabeledMatrix(p_values, header1, header2)
+        if outputname:
+            pvals.to_csv(f"{outputname}.csv")
+        return pvals
 
 
 class _PvalBlocks:

@@ -10,8 +10,11 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import sys
 import threading
 import time
+
+from seekr_tpu_torch.utils.profiler import span
 
 _CONFIGURED = False
 _CONFIGURE_LOCK = threading.Lock()
@@ -43,15 +46,32 @@ def get_logger(name: str = ROOT) -> logging.Logger:
 
 @contextlib.contextmanager
 def stage_timer(stage: str, items: int | None = None, unit: str = "items"):
-    """Log the wall time of the block (and the throughput when ``items`` is
-    given) to ``seekr_tpu_torch.timing``, also when the block raises."""
+    """A ``span`` named ``stage`` (``utils/profiler.py``) that also logs the
+    wall time of the block (and the throughput when ``items`` is given) to
+    ``seekr_tpu_torch.timing``, also when the block raises.
+
+    Where that logger takes INFO records, the block's end waits for the current
+    CUDA card, so the logged time holds the device work the block enqueued;
+    otherwise nothing waits and nothing is timed."""
     log = get_logger(TIMING)
+    timed = log.isEnabledFor(logging.INFO)
     t0 = time.perf_counter()
     try:
-        yield
+        with span(stage):
+            yield
+            if timed:
+                _sync_card()
     finally:
-        dt = time.perf_counter() - t0
-        if items:
-            log.info("%s: %.3fs (%.1f %s/s)", stage, dt, items / max(dt, 1e-9), unit)
-        else:
-            log.info("%s: %.3fs", stage, dt)
+        if timed:
+            dt = time.perf_counter() - t0
+            if items:
+                log.info("%s: %.3fs (%.1f %s/s)", stage, dt, items / max(dt, 1e-9), unit)
+            else:
+                log.info("%s: %.3fs", stage, dt)
+
+
+def _sync_card() -> None:
+    """Wait for the current CUDA card, where this process has used one."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.synchronize()

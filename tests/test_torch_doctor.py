@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from seekr_tpu_torch import cli
-from seekr_tpu_torch.utils import doctor, get_logger, profile_region, stage_timer, trace_session
+from seekr_tpu_torch.utils import doctor, get_logger, span, stage_timer, trace_session
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -108,7 +108,7 @@ def test_stage_timer_logs_also_when_the_block_raises(caplog):
 
 def test_trace_session_writes_a_chrome_trace(tmp_path, monkeypatch):
     with trace_session(str(tmp_path / "t")) as path:
-        with profile_region("seekr/unit"):
+        with span("seekr/unit"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads(Path(path).read_text())
     assert any(e.get("name") == "seekr/unit" for e in trace["traceEvents"])
