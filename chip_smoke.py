@@ -45,8 +45,10 @@ and runs these phases, each a function of (device, scale, state):
    JSON line per step gives its wall time and the device time (CUDA events) of
    its counts and its GEMM; a breakdown times each host part twice, through the
    host C++ library and through the Python/numpy path it replaced
-   (``SEEKR_TPU_HOST_SORT=numpy``, the Python parse and writer), and fails
-   unless the counts, the corrections and the 13 M-cell CSV bytes agree;
+   (``SEEKR_TPU_HOST_SORT=numpy``, the Python parse and writer), times the
+   ECDF at the benchmark's pval sizes (all 84.5 M pairs' r as the null, 500
+   query rows) on the host and on the card, and fails unless the counts, the
+   corrections, the 13 M-cell CSV bytes and the two ECDFs' p-values agree;
 7. the warm-resident service (``serve.SeekrService``) at seekr_tpu's serving
    benchmark size (``bench.py:410-475``): the corpus as 13,000 targets at k = 6,
    Log2.post, the width padded to 13,056 rows, the norm vectors and a
@@ -774,6 +776,7 @@ def hiblocked_detail(inputs, k, scale, device, state):
 
 
 STATS_K = 4
+PVAL_CELL_QUERIES = 500  # the query rows of the benchmark's pval cell
 STATS_MODELS = ["norm", "expon", "rayleigh", "uniform"]
 CLI_FIT_MODELS = ["expon", "norm"]
 
@@ -861,7 +864,7 @@ def stats_breakdown(device, scale, state, seqs, bkg, fitres, p_emp):
     from seekr_tpu_torch.io.stream import stream_pearson
     from seekr_tpu_torch.models.counter import _MAX_ROWS_PER_BUCKET, KmerCounter
     from seekr_tpu_torch.models.pearson import pearson
-    from seekr_tpu_torch.ops.ecdf import SortedBackground
+    from seekr_tpu_torch.ops.ecdf import DeviceSortedBackground, SortedBackground
     from seekr_tpu_torch.stats import adj_pval
     from seekr_tpu_torch.stats.fast_cdf import fast_cdf
     from seekr_tpu_torch.stats.find_dist import similarity_triu
@@ -898,10 +901,22 @@ def stats_breakdown(device, scale, state, seqs, bkg, fitres, p_emp):
     np.random.seed(state["seed"])
     timed("random_choice_s", lambda: np.random.choice(
         triu, size=min(scale.stats_subset, len(triu)), replace=False))
-    del triu
     sim = timed("pearson_query_s", lambda: pearson(counts[:scale.stats_query], counts,
                                                    device=device))
     timed("ecdf_s", lambda: SortedBackground(bkg).pvals(sim))
+    # the pval cell's ECDF at its sizes, every pair's r as the null against
+    # 500 query rows: on the host, and on the device (find_pval's path on a
+    # card), bitwise equal
+    cell_r = sim[:PVAL_CELL_QUERIES]
+    host_p = timed("ecdf_cell_host_s",
+                   lambda: SortedBackground(triu).pvals(cell_r).astype(np.float32))
+    device_p = timed("ecdf_cell_device_s", lambda: DeviceSortedBackground(triu, device).pvals(
+        torch.as_tensor(cell_r, device=device)))
+    parts["ecdf_cell_cells"], parts["ecdf_cell_null_values"] = int(cell_r.size), len(triu)
+    parts["ecdf_cell_device_bitwise_host"] = device_p.tobytes() == host_p.tobytes()
+    if not parts["ecdf_cell_device_bitwise_host"]:
+        raise AssertionError("the device ECDF differs from the host's at the pval cell's sizes")
+    del triu, host_p, device_p
     name, _, params = fitres[0]
     timed("fast_cdf_s", lambda: fast_cdf(name, params, sim))
     native_mt = timed("multipletests_s", lambda: multipletests(p_emp.values, method="fdr_bh"))

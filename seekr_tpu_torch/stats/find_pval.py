@@ -2,12 +2,14 @@
 
 Port of ``seekr_tpu/stats/find_pval.py:58-324`` (behavioural parity with
 seekr/find_pval.py:70-183): counts + Pearson of two fastas on the device, then
-per-cell p-values on the host from either a fitted scipy distribution
-(``1 - cdf(r)``) or an empirical background sample (``mean(bkg > r)``).
+per-cell p-values from either a fitted scipy distribution (``1 - cdf(r)``, on
+the host) or an empirical background sample (``mean(bkg > r)``).
 
-  * the empirical branch is a sorted ``searchsorted`` (O(log N) per cell,
-    float64) instead of the reference's O(N) Python loop per cell, with the
-    same values, ties included (``ops.ecdf``);
+  * the empirical branch is a sorted ``searchsorted`` (O(log N) per cell)
+    instead of the reference's O(N) Python loop per cell, with the same
+    values, ties included (``ops.ecdf``).  On a CUDA device the null is
+    sorted and every r searched on the card (``DeviceSortedBackground``),
+    elsewhere on the host (``SortedBackground``): the same bits either way;
   * the fitted branch evaluates the cdf over the whole matrix at once
     (``stats.fast_cdf``, bitwise scipy's);
   * the k vs mean/std compatibility check is the reference's intended one
@@ -34,7 +36,7 @@ from seekr_tpu_torch.io.stream import (STREAM_CELL_THRESHOLD, ArrayCollector,
                                        stream_pearson)
 from seekr_tpu_torch.models.counter import KmerCounter
 from seekr_tpu_torch.models.pearson import mirror_upper_inplace, pearson
-from seekr_tpu_torch.ops.ecdf import SortedBackground
+from seekr_tpu_torch.ops.ecdf import DeviceSortedBackground, SortedBackground
 from seekr_tpu_torch.utils.device import resolve_device
 from seekr_tpu_torch.utils.profiler import span
 
@@ -87,17 +89,26 @@ def _fitted_pval_fn(distname, params):
 
 
 def _empirical_pval_fn(fitres):
-    # sorted once: the streamed mode calls pval_fn per block
-    sorted_bkg = SortedBackground(fitres)
+    # sorted once, where the first r lies (a tensor's device, else the host):
+    # the streamed mode calls pval_fn per block
+    sorted_bkg = None
 
     def pval_fn(sim):
-        return np.asarray(sorted_bkg.pvals(sim), dtype=sim.dtype)
+        nonlocal sorted_bkg
+        on_device = isinstance(sim, torch.Tensor)
+        if sorted_bkg is None:
+            sorted_bkg = (DeviceSortedBackground(fitres, sim.device) if on_device
+                          else SortedBackground(fitres))
+        p = sorted_bkg.pvals(sim)
+        return p if on_device else np.asarray(p, dtype=sim.dtype)
     return pval_fn
 
 
-def _pval_fn(fitres, bestfit):
+def _pval_fn(fitres, bestfit, device):
     """The p-value function of ``fitres``, or None after the reference's
-    advisory messages when ``fitres``/``bestfit`` are unusable."""
+    advisory messages when ``fitres``/``bestfit`` are unusable.  It takes r
+    as a host array and gives p as one; on a CUDA ``device`` the empirical
+    one hands r to the card, where the null is sorted and searched."""
     if isinstance(fitres, list):
         if not check_main_list(fitres):
             print("The format of fitres is wrong.")
@@ -133,7 +144,10 @@ def _pval_fn(fitres, bestfit):
             print("fitres should be the output of find_dist.")
             print(_NO_PVAL)
             return None
-        return _empirical_pval_fn(fitres)
+        pval_fn = _empirical_pval_fn(fitres)
+        if device.type != "cuda":
+            return pval_fn
+        return lambda sim: pval_fn(torch.as_tensor(sim, device=device))
     print("fitres should be the output of find_dist. It should be "
           "either a list of distributions or a numpy array.")
     print(_NO_PVAL)
@@ -152,8 +166,8 @@ def find_pval(seq1file, seq2file, mean_path, std_path, k_mer, fitres,
     call).  ``stream`` forces the streamed mode on or off (None = past
     ``STREAM_CELL_THRESHOLD`` cells when an artifact path is given); streamed,
     the CSV (``outputname``) and .npy (``npy_out``) are written block by block
-    and None is returned.  ``device``: where counting and Pearson run
-    (``None`` = the first CUDA card).  ``data_parallel`` runs the O(m1*m2)
+    and None is returned.  ``device``: where counting and Pearson run, and
+    on a card the empirical p-values too (``None`` = the first CUDA card).  ``data_parallel`` runs the O(m1*m2)
     Pearson data-sharded over a mesh of that many devices of ``device``'s kind,
     streamed or in memory; a self comparison is mirrored to exact symmetry.
     """
@@ -199,7 +213,7 @@ def find_pval(seq1file, seq2file, mean_path, std_path, k_mer, fitres,
                 print("Be carefule during further analysis as there are potential "
                       "indexing problems.")
 
-        pval_fn = _pval_fn(fitres, bestfit)
+        pval_fn = _pval_fn(fitres, bestfit, device)
         if pval_fn is None:
             return None
 

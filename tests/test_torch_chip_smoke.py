@@ -46,6 +46,7 @@ def test_phases_rehearse_on_cpu():
     assert found["families_found"] == chip_smoke.TINY.leiden_families
     assert state["stats_breakdown"]["adj_pval_bitwise_numpy"]
     assert state["stats_breakdown"]["pvals_csv_bytes_equal_python"]
+    assert state["stats_breakdown"]["ecdf_cell_device_bitwise_host"]
     # phase 9 ran the workflow, the streamed correction, domain_pearson, pwms,
     # the data tools and the doctor, and held every check
     wf = state["workflow"]

@@ -535,6 +535,69 @@ def test_gpu_stats_chain_matches_cpu_run(tmp_path, monkeypatch):
     assert torch.equal(ecdf_sf(finite.to(device), r.to(device)).cpu(), ecdf_sf(finite, r))
 
 
+def null_away_from(r, n, dtype, rng, margin=1e-4):
+    """About ``n`` null values in [-1, 1], none within ``margin`` of any r,
+    with a run of exact repeats and every 97th NaN.  The card's r lie within
+    1e-5 of the CPU's, so each counts the same null values greater."""
+    r = np.sort(r[np.isfinite(r)].astype(np.float64).ravel())
+    vals = rng.uniform(-1, 1, n)
+    i = np.clip(np.searchsorted(r, vals), 1, len(r) - 1)
+    null = vals[np.minimum(np.abs(vals - r[i - 1]), np.abs(vals - r[i])) >= margin]
+    null = null.astype(dtype)
+    null[1:200:2] = null[0]
+    null[::97] = np.nan
+    return null
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["queries", "self", "streamed"])
+def test_gpu_empirical_find_pval_is_the_cpu_runs_bits(case, tmp_path, monkeypatch):
+    device = need_cuda()
+    from seekr_tpu_torch.io.fasta import write_fasta
+    from seekr_tpu_torch.models.counter import KmerCounter
+    from seekr_tpu_torch.models.pearson import pearson
+    from seekr_tpu_torch.ops import ecdf
+    from seekr_tpu_torch.stats import find_pval
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(11)
+    for name, m in (("bkg", 60), ("q", 12)):
+        seqs = ["".join(rng.choice(list("ACGT"), size=int(rng.integers(150, 900))))
+                for _ in range(m)]
+        write_fasta(f"{name}.fa", [f"{name}{i}" for i in range(m)], seqs)
+    counter = KmerCounter("bkg.fa", k=3, silent=True, device="cpu")
+    counter.get_counts()
+    vectors = ("mean.npy", "std.npy")
+    np.save(vectors[0], counter.mean)
+    np.save(vectors[1], counter.std)
+    query = "bkg.fa" if case == "self" else "q.fa"
+    counts = KmerCounter(query, mean=vectors[0], std=vectors[1], k=3, silent=True,
+                         device="cpu").get_counts()
+    r = pearson(counts, counts if case == "self" else KmerCounter(
+        "bkg.fa", mean=vectors[0], std=vectors[1], k=3, silent=True, device="cpu").get_counts(),
+        device="cpu")
+    # past 2^24 values the denominator needs float64; the CLI's loadtxt gives float64
+    size, dtype = {"queries": (2 ** 24 + 2 ** 22, np.float32), "self": (200_000, np.float64),
+                   "streamed": (200_000, np.float32)}[case]
+    null = null_away_from(r, size, dtype, rng)
+    if case == "queries":
+        assert len(null) > 2 ** 24
+    p, used = {}, {}
+    for dev in (device, torch.device("cpu")):
+        before = dict(ecdf.evaluations)
+        kw = {"stream": True, "npy_out": f"{dev.type}.npy",
+              "stream_block_rows": 5} if case == "streamed" else {}
+        out = find_pval(query, "bkg.fa", *vectors, 3, null, progress_bar=False, device=dev,
+                        **kw)
+        p[dev.type] = np.load(f"{dev.type}.npy") if case == "streamed" else out.values
+        used[dev.type] = {key: ecdf.evaluations[key] - before[key] for key in before}
+    assert p["cuda"].dtype == np.float32 and p["cuda"].tobytes() == p["cpu"].tobytes()
+    calls = 3 if case == "streamed" else 1  # 12 rows in blocks of 5
+    assert used == {"cuda": {"device": calls, "host": 0}, "cpu": {"device": 0, "host": calls}}
+    if case == "self":
+        assert np.array_equal(p["cuda"], p["cuda"].T)
+
+
 def serve_case(tmp_path, rng, n_targets=6):
     letters = np.array(list("AGTC"))
     seqs = ["".join(letters[rng.integers(0, 4, size=int(rng.integers(60, 200)))])

@@ -17,6 +17,8 @@ Every test that runs find_dist works in its own directory: it writes
 ``bkg_{mean,std}_{k}mers.npy`` into the working directory.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +41,8 @@ from seekr_tpu_torch.stats import adj_pval, find_dist, find_pval, multipletests
 from seekr_tpu_torch.stats.fast_cdf import fast_cdf
 from seekr_tpu_torch.stats.find_dist import fit_distributions
 
+# the module: the package exports the function under its name
+find_pval_mod = importlib.import_module("seekr_tpu_torch.stats.find_pval")
 CPU = "cpu"
 METHODS = ["bonferroni", "sidak", "holm-sidak", "holm", "simes-hochberg",
            "hommel", "fdr_bh", "fdr_by", "fdr_tsbh", "fdr_tsbky"]
@@ -143,6 +147,56 @@ def test_ecdf_bitwise_vs_seekr_tpu():
     np.testing.assert_array_equal(np.rint(dev.numpy().astype(np.float64) * len(bkg)),
                                   np.rint(got * len(bkg)))
     np.testing.assert_allclose(dev.numpy(), np.asarray(want), rtol=1.2e-7, atol=0)
+
+
+def edge_case_null_and_r(rng, null_dtype, sim_dtype):
+    """A null with NaNs, repeats, +-0.0 and infinities, and r that ties it
+    exactly, sits on +-0.0 and holds NaN rows (zero-variance rows)."""
+    bkg = rng.normal(size=4000).astype(null_dtype)
+    bkg[::97] = np.nan
+    bkg[1:40:3] = bkg[0]
+    bkg[50:60] = 0.0
+    bkg[60:70] = -0.0
+    bkg[70], bkg[71] = np.inf, -np.inf
+    sim = rng.normal(size=(30, 20)).astype(sim_dtype)
+    bkg[100:110] = bkg[100:110].astype(np.float32)  # values r can take in either dtype
+    sim[0, :10] = bkg[100:110]  # exact ties with the null's values
+    sim[1, :4] = (0.0, -0.0, bkg[0], np.float32(bkg[200]))
+    sim[2] = np.nan
+    sim[3, 3] = np.inf
+    return bkg, sim
+
+
+@pytest.mark.parametrize("sim_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("null_dtype", [np.float32, np.float64])
+def test_device_sorted_background_is_the_host_ones_bits(null_dtype, sim_dtype):
+    bkg, sim = edge_case_null_and_r(np.random.default_rng(7), null_dtype, sim_dtype)
+    want = ecdf.SortedBackground(bkg).pvals(sim).astype(sim.dtype)
+    before = dict(ecdf.evaluations)
+    dev = ecdf.DeviceSortedBackground(bkg, torch.device(CPU))
+    assert dev.n_total == len(bkg)  # the NaNs stay in the denominator
+    assert dev.finite.dtype == torch.from_numpy(bkg).dtype
+    got = dev.pvals(torch.as_tensor(sim))
+    assert got.dtype == sim.dtype and got.tobytes() == want.tobytes()
+    assert (got[2] == 0).all()  # NaN r: past every value
+    assert ecdf.evaluations == {"device": before["device"] + 1, "host": before["host"]}
+    # find_pval's empirical function takes the same path for r given as a tensor
+    assert find_pval_mod._empirical_pval_fn(bkg)(torch.as_tensor(sim)).tobytes() \
+        == want.tobytes()
+
+
+def test_cpu_find_pval_counts_host_evaluations(corpus):
+    np.random.seed(8)
+    bkg = find_dist(corpus["bkg"], k_mer=K, subset_size=500, fit_model=False, device=CPU)
+    vectors = (f"bkg_mean_{K}mers.npy", f"bkg_std_{K}mers.npy")
+    before = dict(ecdf.evaluations)
+    got = find_pval(corpus["q"], corpus["t"], *vectors, K, bkg, device=CPU)
+    assert ecdf.evaluations == {"device": before["device"], "host": before["host"] + 1}
+    want = ecdf.SortedBackground(bkg).pvals(pearson(
+        *[KmerCounter(f, mean=vectors[0], std=vectors[1], k=K, silent=True,
+                      device=CPU).get_counts() for f in (corpus["q"], corpus["t"])],
+        device=CPU)).astype(np.float32)
+    assert got.values.tobytes() == want.tobytes()
 
 
 @pytest.mark.parametrize("name", ["norm", "expon", "rayleigh", "uniform", "gamma", "lognorm"])
