@@ -9,18 +9,29 @@ Port of ``seekr_tpu/models/pipeline.py``:
 
 seekr_tpu's ``m <= 4096`` optimization barrier worked around a TPU layout; the
 port keeps the counts flat ``[m, 4^k]`` throughout and has no such gate.
+
+The count kernel's buffer is the only ``[m, 4^k]`` buffer of a forward: nothing
+outside the forward holds it, so the normalize chain and the row
+standardization are handed it and work in place (past k = 6 block by block).
+At k = 9 on 13,000 rows that buffer is 13.6 GB.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from seekr_tpu_torch.ops.count import count_graph
 from seekr_tpu_torch.ops.count_cuda import split_hi_lo
-from seekr_tpu_torch.ops.normalize import LOG2_POST, check_log2_mode, normalize_graph
-from seekr_tpu_torch.ops.pearson import pearson_graph
+from seekr_tpu_torch.ops import normalize, pearson
+from seekr_tpu_torch.ops.normalize import LOG2_POST, check_log2_mode
 from seekr_tpu_torch.utils.device import resolve_device
 from seekr_tpu_torch.utils.profiler import span
+
+# the forward's steps, each handed the buffer the step before it made
+normalize_graph = partial(normalize.normalize_graph, inplace=True)
+pearson_graph = partial(pearson.pearson_graph, inplace=True)
 
 
 class SeekrPipeline:

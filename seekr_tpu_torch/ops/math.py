@@ -23,8 +23,10 @@ _SQRT2 = 1.4142135623730951
 _MIN_NORMAL = 1.17549435e-38
 
 
-def accurate_log2(x: torch.Tensor) -> torch.Tensor:
-    """float32 log2 with ~2-3 ulp error; NaN/inf/non-positive delegate to torch."""
+def accurate_log2(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """float32 log2 with ~2-3 ulp error; NaN/inf/non-positive delegate to torch.
+
+    ``out``, where given, receives the result (it may not overlap ``x``)."""
     x = x.to(torch.float32)
     xi = x.view(torch.int32)
     e = ((xi >> 23) & 0xFF) - 127
@@ -41,11 +43,11 @@ def accurate_log2(x: torch.Tensor) -> torch.Tensor:
     p = p * s2 + 1.0 / 3.0
     p = p * s2 + 1.0
     log_m = 2.0 * s * p
-    out = e + log_m * _INV_LN2
+    result = e + log_m * _INV_LN2
 
     # special values (x <= 0, inf, nan, denormal): torch's own log2
     normal = (x >= _MIN_NORMAL) & torch.isfinite(x)
-    return torch.where(normal, out, torch.log2(x))
+    return torch.where(normal, result, torch.log2(x), out=out)
 
 
 def log2_1p(x: torch.Tensor) -> torch.Tensor:

@@ -11,20 +11,32 @@ Port of ``seekr_tpu/ops/normalize.py:28-93``, in the reference pipeline's order
 
 A zero-std column gives NaN or inf, and Log2.post's global ``min`` then spreads
 NaN over the whole matrix, as in seekr_tpu and the reference.
+
+Past ``ops.pearson.GEMM_CHUNK`` columns (k >= 7) the chain runs over column
+blocks of that width on one buffer: every step but the shift is column-wise,
+and the shift is the min of the blocks' minima (NaN-propagating, as one
+``min``).  So no temporary is wider than one block, where the whole chain took
+some ten [m, 4^k] temporaries.  ``column_blocks["normalize"]`` counts the
+blocks the chain ran: one at k <= 6, where the chain is the unblocked one.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
 from seekr_tpu_torch.ops.math import accurate_log2
+from seekr_tpu_torch.ops.pearson import blocks_of
+from seekr_tpu_torch.utils.profiler import span
 
 LOG2_PRE = "Log2.pre"
 LOG2_POST = "Log2.post"
 LOG2_NONE = "Log2.none"
 LOG2_MODES = (LOG2_PRE, LOG2_POST, LOG2_NONE)
+
+column_blocks = {"normalize": 0}
 
 
 def check_log2_mode(log2_mode: str) -> None:
@@ -32,19 +44,12 @@ def check_log2_mode(log2_mode: str) -> None:
         raise ValueError("log2 must be one of ['Log2.pre', 'Log2.post', 'Log2.none']")
 
 
-def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str):
-    """The normalize chain on a device tensor.
-
-    ``mean``/``std``: ``None`` computes the column statistic, ``False`` skips the
-    step, a tensor is used as given (flat ``[4^k]``).  Returns
-    (normalized, mean_or_None, std_or_None).  ``counts`` is never modified; the
-    chain's own temporaries are updated in place to keep one [m, 4^k] buffer.
-    """
-    check_log2_mode(log2_mode)
-    counts = counts.to(torch.float32)
-    owned = False  # True once `counts` is a buffer of this function's own
+def _columns(counts: torch.Tensor, mean, std, log2_mode: str, owned: bool):
+    """The chain's column-wise steps, up to the Log2.post shift, on ``counts``
+    (the whole matrix or a block of its columns); ``owned`` lets them overwrite
+    it.  Returns (counts, mean_or_None, std_or_None)."""
     if log2_mode == LOG2_PRE:
-        counts, owned = accurate_log2(counts + 1.0), True
+        counts, owned = accurate_log2(counts + 1.0, out=counts if owned else None), True
 
     if mean is not False:
         mean = counts.mean(dim=0) if mean is None else mean.to(torch.float32)
@@ -58,11 +63,63 @@ def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str):
         counts, owned = (counts.div_(std) if owned else counts / std), True
     else:
         std = None
-
-    if log2_mode == LOG2_POST:
-        shift = counts.min().abs()  # NaN-propagating, like jnp.min
-        counts = accurate_log2(counts + shift + 1.0)
     return counts, mean, std
+
+
+def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str, inplace: bool = False):
+    """The normalize chain on a device tensor.
+
+    ``mean``/``std``: ``None`` computes the column statistic, ``False`` skips the
+    step, a tensor is used as given (flat ``[4^k]``).  Returns
+    (normalized, mean_or_None, std_or_None).  ``counts`` is never modified
+    unless ``inplace`` hands it over; the chain's own temporaries are updated in
+    place.  Past one column block the chain runs on one buffer: ``counts`` when
+    handed over, else one copy of it.
+    """
+    check_log2_mode(log2_mode)
+    with span("normalize"):
+        x = counts.to(torch.float32)
+        owned = inplace or x is not counts
+        blocks = blocks_of(math.prod(x.shape[1:]))
+        column_blocks["normalize"] += len(blocks)
+        if len(blocks) == 1:
+            x, mean, std = _columns(x, mean, std, log2_mode, owned)
+            if log2_mode == LOG2_POST:
+                shift = x.min().abs()  # NaN-propagating, like jnp.min
+                x = accurate_log2(x + shift + 1.0)
+            return x, mean, std
+
+        shape = x.shape
+        if not owned:
+            x = x.clone(memory_format=torch.contiguous_format)
+        x = x.reshape(shape[0], -1)
+        means, stds, minima = [], [], []
+        for cols in blocks:
+            block, block_mean, block_std = _columns(x[:, cols], _cut(mean, cols),
+                                                    _cut(std, cols), log2_mode, True)
+            means.append(block_mean)
+            stds.append(block_std)
+            if log2_mode == LOG2_POST:
+                minima.append(block.min())
+        if log2_mode == LOG2_POST:
+            shift = torch.stack(minima).min().abs()  # a NaN in any block carries
+            for cols in blocks:
+                block = x[:, cols]
+                accurate_log2(block + shift + 1.0, out=block)
+        return x.view(shape), _whole(mean, means), _whole(std, stds)
+
+
+def _cut(v, cols: slice):
+    """Columns ``cols`` of a given statistic; ``None`` and ``False`` pass."""
+    return v if v is None or v is False else v.reshape(-1)[cols]
+
+
+def _whole(given, parts: list):
+    """A statistic as the unblocked chain returns it: computed, the blocks' parts
+    joined; given, as float32; skipped, None."""
+    if given is None:
+        return torch.cat(parts)
+    return None if given is False else given.to(torch.float32)
 
 
 def normalize_counts(counts: torch.Tensor, *, log2_mode: str = LOG2_POST,

@@ -6,6 +6,12 @@ and POPULATION std), then ``r = inner(c1, c2) / n_cols``.  The GEMM is
 ``torch.matmul`` -- seekr_tpu leaves it to XLA outside any kernel -- under
 ``pearson_precision()``, which keeps it in full float32.
 
+Past ``GEMM_CHUNK`` columns (k >= 7) the row standardization and the Gram run
+over column blocks of that width: the row statistics are summed block by block
+and applied in place, and the Gram adds one product a block, so no step holds
+more than one block's temporaries.  ``column_blocks`` counts the blocks each
+ran (``"standardize"``, ``"gram"``): one each at k <= 6.
+
 For outputs too large for one buffer, ``pearson_blocked`` streams row blocks of
 the left operand (``io/stream.stream_pearson``) into a host array.
 ``pearson_pairs`` computes only selected (i, j) pairs: a row gather and a
@@ -14,11 +20,14 @@ row-wise multiply-sum, for the sampled background of find_dist.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from seekr_tpu_torch.ops.precision import pearson_precision
 from seekr_tpu_torch.utils.device import resolve_device
+from seekr_tpu_torch.utils.profiler import span
 
 
 def as_float32(x, device: torch.device) -> torch.Tensor:
@@ -33,31 +42,69 @@ def divide(x: torch.Tensor, n: int) -> torch.Tensor:
     return x / torch.tensor(float(n), dtype=x.dtype, device=x.device)
 
 
-def _row_standardize(c: torch.Tensor) -> torch.Tensor:
-    # axis 0 = rows (sequences); every trailing axis is feature data, so an
-    # unflattened [m, n_hi, n_lo] count tensor standardizes like its flat view
+def _row_standardize(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+    """Each row centred by its mean and divided by its population std.
+
+    Axis 0 = rows (sequences); every trailing axis is feature data, so an
+    unflattened [m, n_hi, n_lo] count tensor standardizes like its flat view.
+    ``inplace`` hands ``c`` over to be overwritten.  Past one column block the
+    row sums of the blocks are added in float64, and the centring and the
+    division run block by block on one buffer: ``c`` when handed over, else a
+    copy.
+    """
     feat = tuple(range(1, c.dim()))
-    c = c.to(torch.float32)
-    c = c - c.mean(dim=feat, keepdim=True)
-    # population std (correction=0): torch's default is the unbiased one
-    return c.div_(c.std(dim=feat, keepdim=True, correction=0))  # c is ours: in place
+    x = c.to(torch.float32)
+    owned = inplace or x is not c
+    blocks = blocks_of(math.prod(x.shape[1:]))
+    column_blocks["standardize"] += len(blocks)
+    if len(blocks) == 1:
+        mean = x.mean(dim=feat, keepdim=True)
+        x = x.sub_(mean) if owned else x - mean
+        # population std (correction=0): torch's default is the unbiased one
+        return x.div_(x.std(dim=feat, keepdim=True, correction=0))
+    shape = x.shape
+    if not owned:
+        x = x.clone(memory_format=torch.contiguous_format)
+    x = x.reshape(shape[0], -1)
+    total = torch.zeros(shape[0], dtype=torch.float64, device=x.device)
+    for cols in blocks:
+        total.add_(x[:, cols].sum(dim=1))
+    mean = (total / x.shape[1]).to(torch.float32)[:, None]
+    total.zero_()
+    for cols in blocks:
+        total.add_(x[:, cols].sub_(mean).square().sum(dim=1))
+    std = (total / x.shape[1]).sqrt_().to(torch.float32)[:, None]
+    for cols in blocks:
+        x[:, cols].div_(std)
+    return x.view(shape)
 
 
 # Columns of one float32 partial product.  A longer contraction is summed in
 # pieces of this width, the k = 6 width: on an H100, one cuBLAS product over the
 # 262,144 columns of k = 9 was 6.5e-4 from float64, outside the 1e-4 budget
-# (chip_smoke.py phase 11 measures both ways).
+# (chip_smoke.py phase 11 measures both ways).  The row standardization and the
+# normalize chain run in column blocks of the same width.
 GEMM_CHUNK = 4096
+
+column_blocks = {"standardize": 0, "gram": 0}
+
+
+def blocks_of(n_cols: int) -> list:
+    """The ``GEMM_CHUNK``-wide column slices of ``n_cols`` columns, in order
+    (one, the whole width, up to ``GEMM_CHUNK``)."""
+    return [slice(c, c + GEMM_CHUNK) for c in range(0, max(n_cols, 1), GEMM_CHUNK)]
 
 
 def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b.T`` in float32, contracted in ``GEMM_CHUNK``-column pieces."""
-    with pearson_precision():
-        if a.shape[1] <= GEMM_CHUNK:
+    blocks = blocks_of(a.shape[1])
+    column_blocks["gram"] += len(blocks)
+    with span("pearson.gram"), pearson_precision():
+        if len(blocks) == 1:
             return a @ b.T
         out = None
-        for c in range(0, a.shape[1], GEMM_CHUNK):
-            piece = a[:, c:c + GEMM_CHUNK] @ b[:, c:c + GEMM_CHUNK].T
+        for cols in blocks:
+            piece = a[:, cols] @ b[:, cols].T
             out = piece if out is None else out.add_(piece)
         return out
 
@@ -67,13 +114,13 @@ def matmul_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return divide(gram(a, b), a.shape[1])
 
 
-def pearson_graph(c: torch.Tensor) -> torch.Tensor:
+def pearson_graph(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """Self-Pearson of one count tensor: row-standardize + Gram / n.
 
     Equivalent to ``pearson_device(c, c)``; accepts the unflattened 3-D count
-    tensor too.
+    tensor too.  ``inplace`` hands ``c`` over to the row standardization.
     """
-    c = _row_standardize(c)
+    c = _row_standardize(c, inplace)
     c = c.reshape(c.shape[0], -1)
     return matmul_nt(c, c)
 

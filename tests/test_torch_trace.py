@@ -166,9 +166,34 @@ def test_find_pval_traced_gives_its_stages_and_the_same_bits(tmp_path):
     counts_ids = {s["id"] for s in children if s["name"] == "counter.count"}
     encodes = [s for s in spans if s["name"] == "fasta.encode"]
     assert len(encodes) == 2 and {s["parent"] for s in encodes} == counts_ids
-    assert len(spans) == 1 + len(children) + len(encodes)  # nothing else was recorded
+    chains = [s for s in spans if s["name"] == "normalize"]
+    assert len(chains) == 2 and {s["parent"] for s in chains} == counts_ids
+    pearson_id = next(s["id"] for s in children if s["name"] == "pearson")
+    grams = [s for s in spans if s["name"] == "pearson.gram"]
+    assert len(grams) == 1 and grams[0]["parent"] == pearson_id
+    # nothing else was recorded
+    assert len(spans) == 1 + len(children) + len(encodes) + len(chains) + len(grams)
     for s in spans:
         assert root["t0"] <= s["t0"] <= s["t1"] <= root["t1"]
+
+
+@pytest.mark.parametrize("k", [3, 7])
+def test_forward_traced_gives_the_chain_and_the_gram_and_the_same_bits(k):
+    from seekr_tpu_torch import SeekrPipeline
+
+    rng = np.random.default_rng(k)
+    bases = torch.from_numpy(rng.integers(0, 4, size=(12, 3000)).astype(np.int8))
+    lengths = torch.full((12,), 3000, dtype=torch.int32)
+    pipe = SeekrPipeline(k=k, device="cpu")
+    plain = pipe.forward(bases, lengths)
+    with cpu_profile():
+        traced = pipe.forward(bases, lengths)
+    assert torch.equal(traced.nan_to_num(2.0), plain.nan_to_num(2.0))
+    got = by_name(recorded_spans())
+    assert sorted(got) == ["normalize", "pearson.gram", "pipeline.forward"]
+    root = got["pipeline.forward"]
+    assert got["normalize"]["parent"] == root["id"] == got["pearson.gram"]["parent"]
+    assert got["normalize"]["t1"] <= got["pearson.gram"]["t0"]
 
 
 def test_stage_timer_is_a_span_and_waits_for_the_card_only_when_logged(monkeypatch,
