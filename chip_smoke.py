@@ -20,6 +20,9 @@ and runs these phases, each a function of (device, scale, state):
    GENCODE vM25 lncRNAs: here 13,000 transcripts with lognormal lengths, median
    about 1.4 kb, capped at 4,096), timed, and checked against a float64
    recomputation of normalize + Pearson from the kernel's counts (max abs 1e-4);
+   the self Gram's route (``ops.pearson.gram_routes``: the split TF32 product
+   by default), its GEMM kernels' names and its time and r error against
+   float64 are printed beside the float32 product's;
 4. the same corpus through ``KmerCounter(fasta).get_counts()`` and ``pearson``
    (the blocked path): exactly symmetric, within 1e-4 of phase 3; a FASTA with
    two transcripts past the long-sequence threshold against the numpy oracle;
@@ -198,6 +201,7 @@ import argparse
 import itertools
 import json
 import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -519,15 +523,34 @@ def f64_reference(raw, ncols):
     return (c @ c.T) / ncols
 
 
+def gemm_kernels(fn) -> dict:
+    """{name: launches} of the GEMM kernels one call of ``fn`` runs on the card
+    (``torch.profiler``; names cut to 100 characters)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                re.search(r"(?i)gemm|xmma|cutlass", ev.name):
+            names[ev.name[:100]] = names.get(ev.name[:100], 0) + 1
+    return names
+
+
 def phase_pipeline(device, scale, state):
     """Main path, pipeline entry: SeekrPipeline(k=6, Log2.post).forward."""
     import torch
 
     from seekr_tpu_torch.models.pipeline import SeekrPipeline
     from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops import pearson as pearson_ops
     from seekr_tpu_torch.ops.count import count_graph
     from seekr_tpu_torch.ops.normalize import normalize_graph
-    from seekr_tpu_torch.ops.pearson import _row_standardize, matmul_nt
+    from seekr_tpu_torch.ops.pearson import _row_standardize, divide, matmul_nt, self_gram
 
     bases, lengths = make_corpus(scale.corpus_m, scale.corpus_cap, state["seed"])
     state["corpus"] = (bases, lengths)
@@ -539,9 +562,11 @@ def phase_pipeline(device, scale, state):
     nt = torch.as_tensor(lengths, device=device)
 
     count_cuda.reset_launches()
+    routes = dict(pearson_ops.gram_routes)
     for _ in range(3):
         sim = pipe.forward(bt, nt)
     sync(device)
+    routes = sorted(k for k, v in pearson_ops.gram_routes.items() if v != routes[k])
     if is_cuda(device):
         torch.cuda.reset_peak_memory_stats(device)
     walls = []
@@ -564,10 +589,23 @@ def phase_pipeline(device, scale, state):
         out["normalize_ms"] = cuda_ms(
             lambda: normalize_graph(raw, None, None, "Log2.post"), scale.reps)
         out["row_standardize_ms"] = cuda_ms(lambda: _row_standardize(normalized), scale.reps)
+        # the float32 product (``highest``) beside the forward's self Gram
+        # (``high``: the split TF32 product), each r held to float64
+        n = operand.shape[1]
         out["pearson_gemm_ms"] = cuda_ms(lambda: matmul_nt(operand, operand), scale.reps)
-        gemm_flop = 2.0 * m * m * operand.shape[1]
+        gemm_flop = 2.0 * m * m * n
         out["pearson_gemm_tflop_per_s"] = gemm_flop / (out["pearson_gemm_ms"] / 1e3) / 1e12
-        del normalized, operand
+        out["self_gram_route"] = routes
+        out["self_gram_ms"] = cuda_ms(lambda: self_gram(operand), scale.reps)
+        out["self_gram_tflop_per_s"] = gemm_flop / (out["self_gram_ms"] / 1e3) / 1e12
+        out["self_gram_kernels"] = gemm_kernels(lambda: self_gram(operand))
+        exact = operand.to(torch.float64)
+        exact = (exact @ exact.T) / n
+        out["self_gram_r_max_abs_vs_f64"] = \
+            (divide(self_gram(operand), n).to(torch.float64) - exact).abs().max().item()
+        out["fp32_gemm_r_max_abs_vs_f64"] = \
+            (matmul_nt(operand, operand).to(torch.float64) - exact).abs().max().item()
+        del normalized, operand, exact
     else:
         raw = count_graph(bt, nt, PIPELINE_K)
 

@@ -6,6 +6,13 @@ and POPULATION std), then ``r = inner(c1, c2) / n_cols``.  The GEMM is
 ``torch.matmul`` -- seekr_tpu leaves it to XLA outside any kernel -- under
 ``pearson_precision()``, which keeps it in full float32.
 
+The self Gram of ``pearson_graph`` on a card is, under the default precision
+(``ops/precision.py``), a split-precision product on the tensor cores, the
+counterpart of seekr_tpu's bf16x3 ``HIGH``: the operand is split into TF32
+halves ``a = hi + lo`` (``split_tf32``) and ``a @ a.T`` is taken as
+``hi @ hi.T + X + X.T`` with ``X = hi @ lo.T``, in TF32 products
+(``split_gram``).  ``gram_routes`` counts the self Grams by route.
+
 Past ``GEMM_CHUNK`` columns (k >= 7) the row standardization and the Gram run
 over column blocks of that width: the row statistics are summed block by block
 and applied in place, and the Gram adds one product a block, so no step holds
@@ -25,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from seekr_tpu_torch.ops.precision import pearson_precision
+from seekr_tpu_torch.ops.precision import matmul_precision, pearson_precision
 from seekr_tpu_torch.utils.device import resolve_device
 from seekr_tpu_torch.utils.profiler import span
 
@@ -87,6 +94,24 @@ def _row_standardize(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
 GEMM_CHUNK = 4096
 
 column_blocks = {"standardize": 0, "gram": 0}
+gram_routes = {"split": 0, "fp32": 0, "tf32": 0}
+
+# float32 keeps 13 mantissa bits more than TF32's 10: adding half of the lowest
+# kept bit and clearing the 13 rounds to nearest, ties away from zero (PTX's
+# cvt.rna.tf32.f32); the largest TF32 value, so a finite value never rounds to inf
+TF32_HALF_ULP = 1 << 12
+TF32_MASK = -(1 << 13)
+TF32_MAX = (2 - 2 ** -10) * 2.0 ** 127
+
+# Columns one TF32 product of the split Gram's large term ``hi hi^T`` sums
+# before its total is added to the rest in float32 (``addmm_``).  The tensor
+# cores' float32 sums are not rounded to nearest: on sums of one sign (the
+# diagonal, r near 1) their error grows in proportion to this width (and 10x
+# less off the diagonal, where terms cancel): on the H100, over the
+# 13,000 x 4,096 operand of the k = 6 forward, r's largest error from float64
+# was 2.9e-5 at 4,096 columns (outside the 2.5e-5 check), 7.5e-6 at 1,024 and
+# 3.6e-6 at 512 (float32's SGEMM 3.8e-6), at 3.2, 4.7 and 6.0 ms for the term.
+TF32_SUM_COLUMNS = 512
 
 
 def blocks_of(n_cols: int) -> list:
@@ -114,15 +139,95 @@ def matmul_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return divide(gram(a, b), a.shape[1])
 
 
+def round_to_tf32(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` rounded to the nearest TF32 value (ties away from zero), as float32
+    whose low 13 mantissa bits are zero; into ``out`` (not ``x`` itself) if given.
+
+    A finite value past TF32's largest rounds down to it, never to inf.  NaN
+    stays NaN (CUDA's NaN, 0x7fffffff, would carry into the sign and read -0);
+    +-inf reads NaN too, as a split operand's row would anyway (``inf - hi``).
+    """
+    y = torch.clamp(x, -TF32_MAX, TF32_MAX, out=out)
+    y.view(torch.int32).add_(TF32_HALF_ULP).bitwise_and_(TF32_MASK)
+    # + x * 0: zero where x is finite, NaN where it is not
+    return y.addcmul_(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def split_tf32(a: torch.Tensor, hi: torch.Tensor | None = None,
+               lo: torch.Tensor | None = None):
+    """``(hi, lo)``, each TF32-exact, with ``|a - hi - lo| <= max(2^-22 |a|,
+    2^-137)``: ``hi`` is ``a`` rounded to TF32 (2^-11 of ``|a|`` at most), ``lo``
+    the rest ``a - hi`` rounded in turn (2^-11 of the rest; 2^-137, half TF32's
+    subnormal step, where the rest is subnormal).  ``hi`` and ``lo``, where
+    given, are scratch of ``a``'s shape to write into."""
+    hi = round_to_tf32(a, out=hi)
+    return hi, round_to_tf32(a - hi, out=lo)
+
+
+def _add_hi_hi(out: torch.Tensor | None, hi: torch.Tensor) -> torch.Tensor:
+    """``out + hi @ hi.T`` (``out`` None: 0), ``TF32_SUM_COLUMNS`` columns a product."""
+    for c in range(0, hi.shape[1], TF32_SUM_COLUMNS):
+        part = hi[:, c:c + TF32_SUM_COLUMNS]
+        out = part @ part.T if out is None else out.addmm_(part, part.T)
+    return out
+
+
+def split_gram(a: torch.Tensor) -> torch.Tensor:
+    """``a @ a.T`` as TF32 products on the tensor cores, fp32's error class.
+
+    With ``a = hi + lo`` (``split_tf32``), ``a a^T = hi hi^T + hi lo^T + lo hi^T
+    + lo lo^T``; every TF32 x TF32 product is exact in float32, and only
+    ``lo lo^T`` (2^-22 of the whole) is dropped.  The two cross terms are
+    ``X + X^T`` with ``X = hi lo^T``, so the Gram is ``X + X^T`` (out of place)
+    plus ``hi hi^T`` (``addmm_``, beta 1), the latter ``TF32_SUM_COLUMNS``
+    columns a product.  Past ``GEMM_CHUNK`` columns each piece is split into
+    the same scratch, and ``X`` and the ``hi hi^T`` sum gather every piece's
+    products; ``X + X^T`` is added once at the end.
+    """
+    blocks = blocks_of(a.shape[1])
+    column_blocks["gram"] += len(blocks)
+    with span("pearson.gram"), pearson_precision(tf32=True):
+        if len(blocks) == 1:
+            hi, lo = split_tf32(a)
+            x = hi @ lo.T
+            return _add_hi_hi(x + x.T, hi)
+        hi = lo = x = out = None
+        for cols in blocks:
+            piece = a[:, cols]
+            if hi is None or hi.shape != piece.shape:  # one scratch pair a width
+                hi, lo = (torch.empty(piece.shape, dtype=a.dtype, device=a.device)
+                          for _ in range(2))
+            hi, lo = split_tf32(piece, hi, lo)
+            x = hi @ lo.T if x is None else x.addmm_(hi, lo.T)
+            out = _add_hi_hi(out, hi)
+        return out.add_(x).add_(x.T)
+
+
+def self_gram(a: torch.Tensor) -> torch.Tensor:
+    """``a @ a.T`` of one operand, by the route ``gram_routes`` counts: the
+    split TF32 product on a card under the default precision (``high``),
+    else ``gram(a, a)`` in float32 (``highest``, and any CPU tensor, which has
+    no TF32) or in TF32 (``default``)."""
+    precision = matmul_precision()
+    if precision == "default":
+        route = "tf32"
+    elif precision == "high" and a.is_cuda:
+        route = "split"
+    else:
+        route = "fp32"
+    gram_routes[route] += 1
+    return split_gram(a) if route == "split" else gram(a, a)
+
+
 def pearson_graph(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
-    """Self-Pearson of one count tensor: row-standardize + Gram / n.
+    """Self-Pearson of one count tensor: row-standardize + self Gram / n.
 
     Equivalent to ``pearson_device(c, c)``; accepts the unflattened 3-D count
     tensor too.  ``inplace`` hands ``c`` over to the row standardization.
     """
     c = _row_standardize(c, inplace)
     c = c.reshape(c.shape[0], -1)
-    return matmul_nt(c, c)
+    return divide(self_gram(c), c.shape[1])
 
 
 def pearson_device(counts1, counts2, row_standardize: bool = True,

@@ -2,13 +2,20 @@
 
 Port of ``seekr_tpu/ops/precision.py``.  seekr_tpu measured a bf16-class GEMM at
 3.6e-4 max error on its 2048x4096 Gram matrix, outside the reference's 1e-4
-budget.  TF32 keeps the same 10-bit mantissa, so the Pearson GEMMs run in full
-float32 whatever the caller set globally: ``pearson_precision()`` sets it for the
-duration of a ``with`` block and restores the caller's setting afterwards.
+budget.  TF32 keeps the same 10-bit mantissa, so no Pearson GEMM runs in plain
+TF32 unless asked to, whatever the caller set globally: ``pearson_precision()``
+sets the precision for the duration of a ``with`` block and restores the
+caller's setting afterwards.
 
-``SEEKR_TPU_MATMUL_PRECISION`` is the same knob as in seekr_tpu: ``high`` (the
-default) and ``highest`` both mean float32, because the TPU's bf16x3 ``HIGH`` has
-no torch counterpart inside the budget; ``default`` means TF32.
+``SEEKR_TPU_MATMUL_PRECISION`` is the same knob as in seekr_tpu, with three values:
+
+* ``high`` (the default), seekr_tpu's bf16x3 ``HIGH``: the self Gram of
+  ``ops.pearson.pearson_graph`` on a card is a split-precision product on the
+  tensor cores (TF32 products of the operand's high and low TF32 halves,
+  fp32's error class; ``ops.pearson.split_gram``); every other product runs
+  in float32;
+* ``highest``: every product in float32, the self Gram included;
+* ``default``: every product in TF32.
 """
 
 from __future__ import annotations
@@ -22,8 +29,8 @@ import torch
 _warned_invalid = False
 
 
-def tf32_requested() -> bool:
-    """True when ``SEEKR_TPU_MATMUL_PRECISION=default`` asks for TF32."""
+def matmul_precision() -> str:
+    """``SEEKR_TPU_MATMUL_PRECISION``: ``default``, ``high`` (unset) or ``highest``."""
     name = os.environ.get("SEEKR_TPU_MATMUL_PRECISION", "high").lower()
     if name not in ("default", "high", "highest"):
         # a typo'd override silently running at float32 would make the knob
@@ -33,8 +40,13 @@ def tf32_requested() -> bool:
             _warned_invalid = True
             warnings.warn(f"SEEKR_TPU_MATMUL_PRECISION={name!r} is not one of "
                           "default|high|highest; using 'high'")
-        return False
-    return name == "default"
+        return "high"
+    return name
+
+
+def tf32_requested() -> bool:
+    """True when ``SEEKR_TPU_MATMUL_PRECISION=default`` asks for TF32."""
+    return matmul_precision() == "default"
 
 
 def _legacy_precision() -> str | None:
@@ -47,9 +59,11 @@ def _legacy_precision() -> str | None:
 
 
 @contextlib.contextmanager
-def pearson_precision():
-    """Run the enclosed matmuls in float32 (or TF32 under ``default``)."""
-    tf32 = tf32_requested()
+def pearson_precision(tf32: bool | None = None):
+    """Run the enclosed matmuls in float32, or in TF32 where ``tf32`` asks for
+    it (``None``: under ``default``)."""
+    if tf32 is None:
+        tf32 = tf32_requested()
     matmul = torch.backends.cuda.matmul
     prev_legacy = _legacy_precision()
     prev_new = getattr(matmul, "fp32_precision", None)

@@ -812,3 +812,99 @@ def test_gpu_k9_pearson_within_the_budget_of_float64():
     want = (z @ z.T) / z.shape[1]
     got = pipe.forward(bases, lengths, mean, std).double()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def long_rows(m, seed):
+    """m random rows of 2,048-4,096 bases (no N), padded to 4,096."""
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, size=(m, 4096), dtype=np.int8)
+    lengths = rng.integers(2048, 4097, size=m).astype(np.int32)
+    for r in range(m):
+        bases[r, lengths[r]:] = 4
+    return bases, lengths
+
+
+def forward_by_precision(monkeypatch, pipe, args, values):
+    """{precision: (r, the self Gram routes the forward counted)}."""
+    from seekr_tpu_torch.ops import pearson as ops_pearson
+
+    out = {}
+    for value in values:
+        monkeypatch.setenv("SEEKR_TPU_MATMUL_PRECISION", value)
+        before = dict(ops_pearson.gram_routes)
+        r = pipe.forward(*args)
+        out[value] = (r, [k for k, v in ops_pearson.gram_routes.items() if v != before[k]])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [6, 9])
+def test_gpu_split_self_gram_within_1e5_of_float64(monkeypatch, k):
+    # the default forward's Gram is the split TF32 product: r within 1e-5 of
+    # float64 and within 3x of the float32 product's own error; plain TF32 is
+    # of another class
+    device = need_cuda()
+    from seekr_tpu_torch import SeekrPipeline
+
+    bases, lengths = long_rows(2048, k)
+    pipe = SeekrPipeline(k=k, log2="Log2.none", device=device)
+    mean, std = torch.zeros(4 ** k), torch.ones(4 ** k)
+    z = pipe.counts(bases, lengths, mean, std)[0].double()
+    z = z - z.mean(dim=1, keepdim=True)
+    z = z / z.std(dim=1, keepdim=True, correction=0)
+    want = (z @ z.T) / z.shape[1]
+    del z
+    runs = forward_by_precision(monkeypatch, pipe, (bases, lengths, mean, std),
+                                ("high", "highest", "default"))
+    assert {v: routes for v, (_, routes) in runs.items()} == \
+        {"high": ["split"], "highest": ["fp32"], "default": ["tf32"]}
+    err = {v: (r.double() - want).abs().max().item() for v, (r, _) in runs.items()}
+    assert err["high"] <= 1e-5, err
+    assert err["high"] <= 3 * err["highest"], err
+    assert err["default"] >= 5 * err["high"], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [6, 9])
+def test_gpu_highest_is_the_plain_float32_product_bitwise(monkeypatch, k):
+    device = need_cuda()
+    from seekr_tpu_torch import SeekrPipeline
+    from seekr_tpu_torch.ops import pearson as ops_pearson
+    from seekr_tpu_torch.ops.precision import pearson_precision
+
+    bases, lengths = long_rows(2048, k + 10)
+    pipe = SeekrPipeline(k=k, log2="Log2.post", device=device)
+    got = forward_by_precision(monkeypatch, pipe, (bases, lengths), ["highest"])["highest"][0]
+    a = ops_pearson._row_standardize(pipe.counts(bases, lengths)[0])
+    want = None
+    with pearson_precision(tf32=False):  # float32, 4,096 columns a product, in order
+        for c in range(0, a.shape[1], 4096):
+            piece = a[:, c:c + 4096] @ a[:, c:c + 4096].T
+            want = piece if want is None else want.add_(piece)
+    want = want / torch.tensor(float(a.shape[1]), device=device)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["rows", "column"])
+def test_gpu_split_nan_cells_are_the_float32_products(monkeypatch, case):
+    # empty rows standardize to NaN rows (Log2.none); a k-mer absent from every
+    # row has a zero column std and makes every cell NaN (Log2.post)
+    device = need_cuda()
+    from seekr_tpu_torch import SeekrPipeline
+
+    bases, lengths = long_rows(512, 30)
+    if case == "rows":
+        bases[[3, 7]], lengths[[3, 7]] = 4, 0
+        pipe = SeekrPipeline(k=6, log2="Log2.none", device=device)
+        args = (bases, lengths, torch.zeros(4 ** 6), torch.ones(4 ** 6))
+    else:
+        bases[bases == 3] = 2
+        pipe = SeekrPipeline(k=6, log2="Log2.post", device=device)
+        args = (bases, lengths)
+    runs = forward_by_precision(monkeypatch, pipe, args, ("high", "highest"))
+    assert runs["high"][1] == ["split"]
+    nan = {v: torch.isnan(r) for v, (r, _) in runs.items()}
+    assert torch.equal(nan["high"], nan["highest"])
+    assert nan["high"].any()
+    assert bool(nan["high"].all()) == (case == "column")

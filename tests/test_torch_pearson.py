@@ -162,3 +162,147 @@ def test_long_contractions_are_summed_in_pieces(n_cols):
     assert torch.equal(torch_ops.matmul_nt(a, b), want)
     exact = (a.double() @ b.double().T) / n_cols
     assert (torch_ops.matmul_nt(a, b).double() - exact).abs().max() < 1e-5
+
+
+# -- the split TF32 self Gram (ops.pearson.split_gram) ---------------------------
+
+LOW_13 = 0x1FFF
+CASES = ["random", "tiny", "subnormal", "zeros", "large"]
+
+
+def split_case(name):
+    """float32 values of one magnitude class, both signs."""
+    rng = np.random.default_rng(CASES.index(name))
+    if name == "random":
+        x = rng.normal(size=4096) * 10.0 ** rng.uniform(-3, 3, 4096)
+    elif name == "tiny":  # normal, near the bottom of float32's range
+        x = rng.uniform(1, 2, 2048) * 2.0 ** rng.integers(-126, -100, 2048)
+    elif name == "subnormal":
+        x = rng.integers(1, 2 ** 23, 2048, dtype=np.int64).astype(np.int32).view(np.float32)
+    elif name == "zeros":
+        x = np.array([0.0, -0.0, 0.0, -0.0])
+    else:  # large: up to float32's largest, past TF32's largest
+        x = rng.uniform(1, 2, 2048) * 2.0 ** rng.integers(100, 128, 2048)
+        x = np.append(np.minimum(x, np.finfo(np.float32).max),
+                      [np.finfo(np.float32).max, torch_ops.TF32_MAX,
+                       np.nextafter(np.float32(torch_ops.TF32_MAX), np.float32(np.inf))])
+    x = np.asarray(x, dtype=np.float32)
+    if name != "zeros":
+        x = x * rng.choice(np.array([-1, 1], dtype=np.float32), x.size)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_split_halves_are_tf32_values(case):
+    hi, lo = torch_ops.split_tf32(split_case(case))
+    for half in (hi, lo):
+        assert not (half.view(torch.int32) & LOW_13).any()
+        assert torch.isfinite(half).all()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_split_halves_sum_to_the_value_within_2_to_the_minus_22(case):
+    # hi is a rounded to 11 significant bits (off by 2^-11 |a| at most), lo the
+    # rest rounded the same way (2^-11 of the rest): 2^-22 |a| together.  Where
+    # the rest is subnormal, TF32 steps by 2^-136, so the floor is half that.
+    a = split_case(case)
+    hi, lo = torch_ops.split_tf32(a)
+    a64 = a.double()
+    miss = (a64 - hi.double() - lo.double()).abs()
+    assert (miss <= torch.clamp(2.0 ** -22 * a64.abs(), min=2.0 ** -137)).all()
+
+
+def nearest_tf32(x):
+    """Round to nearest TF32, ties away from zero, in float64: 11 significant
+    bits in float32's normal range, a step of 2^-136 below it, clamped to
+    TF32's largest."""
+    x = x.double()
+    step = torch.clamp(2.0 ** (torch.frexp(x).exponent.double() - 11), min=2.0 ** -136)
+    r = torch.sign(x) * torch.floor(x.abs() / step + 0.5) * step
+    return torch.clamp(r, -torch_ops.TF32_MAX, torch_ops.TF32_MAX).float()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_round_to_tf32_is_the_nearest_tf32_value(case):
+    a = split_case(case)
+    got = torch_ops.round_to_tf32(a)
+    assert torch.equal(got, nearest_tf32(a))
+    assert torch.equal(torch.signbit(got[got == 0]), torch.signbit(a[got == 0]))
+
+
+def test_round_to_tf32_keeps_nan_and_makes_no_inf():
+    nans = torch.tensor([0x7FFFFFFF, -1, 0x7FC00000, 0x7F800001, 0x7F800FFF,
+                         0x7F801000, -0x7FF001, 0x7FFFF000], dtype=torch.int32)
+    nans = nans.view(torch.float32)
+    assert torch.isnan(nans).all()
+    assert torch.isnan(torch_ops.round_to_tf32(nans)).all()
+    hi, lo = torch_ops.split_tf32(nans)
+    assert torch.isnan(hi).all()
+    big = split_case("large")
+    assert torch.isfinite(torch_ops.round_to_tf32(big)).all()
+    assert torch.isfinite(torch.cat(torch_ops.split_tf32(big))).all()
+
+
+def standardized(seed, m, n):
+    return torch_ops.standardize_rows(counts(seed, m=m, n=n), device="cpu")
+
+
+def test_emulated_split_gram_within_its_derived_bound():
+    # a = hi + lo + e with |hi| <= (1 + 2^-11)|a|, |lo| <= (2^-11 + 2^-22)|a|
+    # and |e| <= 2^-22 |a| (split_tf32), so
+    #   a_i a_j - (hi_i hi_j + hi_i lo_j + lo_i hi_j)
+    #     = lo_i lo_j + hi_i e_j + e_i hi_j + lo_i e_j + e_i lo_j + e_i e_j,
+    # at most (1 + 2 (1 + 2^-11) + 2^-9) 2^-22 |a_i||a_j| < 3.01 * 2^-22 |a_i||a_j|
+    # a column.  Summed: |hi hi^T + X + X^T - a a^T| <= 3.01 * 2^-22 (|a| |a|^T),
+    # plus float64's own rounding of the products (~n 2^-53, under 1e-9 here).
+    # For standardized rows (|a_i|.|a_j| <= n) that is 7.2e-7 of r.
+    a = standardized(13, 48, 4096)
+    hi, lo = (h.double() for h in torch_ops.split_tf32(a))
+    x = hi @ lo.T
+    emulated = hi @ hi.T + x + x.T
+    a64 = a.double()
+    bound = (3.01 * 2.0 ** -22 + 1e-9) * (a64.abs() @ a64.abs().T)
+    assert ((emulated - a64 @ a64.T).abs() <= bound).all()
+    assert (emulated - a64 @ a64.T).abs().max() / a.shape[1] < 7.2e-7
+
+
+@pytest.mark.parametrize("n_cols", [4096, 3 * 4096 + 5])
+def test_split_gram_in_float32_within_the_budget(n_cols):
+    # the split Gram's own arithmetic on the CPU (the products in float32, the
+    # pieces, the narrow last piece): r as close to float64 as the fp32 product
+    a = standardized(n_cols, 40, n_cols)
+    blocks = torch_ops.column_blocks["gram"]
+    got = torch_ops.divide(torch_ops.split_gram(a), n_cols).double()
+    assert torch_ops.column_blocks["gram"] == blocks + len(torch_ops.blocks_of(n_cols))
+    a64 = a.double()
+    exact = (a64 @ a64.T) / n_cols
+    assert (got - exact).abs().max() < 1e-5
+    fp32 = torch_ops.matmul_nt(a, a).double()
+    assert (got - exact).abs().max() <= 3 * (fp32 - exact).abs().max() + 1e-7
+
+
+def test_split_gram_nan_cells_are_the_fp32_products():
+    # a zero-std row standardizes to NaN; its row and column of r are NaN in
+    # both products, and no other cell
+    c = counts(14, m=12, n=4096)
+    c[3] = 1.0
+    c[8, 5] = np.nan
+    a = torch_ops.standardize_rows(c, device="cpu")
+    split = torch_ops.split_gram(a)
+    plain = torch_ops.gram(a, a)
+    assert torch.isnan(plain).any()
+    assert torch.equal(torch.isnan(split), torch.isnan(plain))
+
+
+@pytest.mark.parametrize("value,route", [("high", "fp32"), ("highest", "fp32"),
+                                         ("default", "tf32")])
+def test_self_gram_on_the_cpu_is_the_plain_product(monkeypatch, value, route):
+    # a CPU tensor has no TF32: every setting takes the plain product, as before
+    monkeypatch.setenv("SEEKR_TPU_MATMUL_PRECISION", value)
+    c = torch.from_numpy(counts(15, n=4096))
+    before = dict(torch_ops.gram_routes)
+    got = torch_ops.pearson_graph(c)
+    assert torch_ops.gram_routes[route] == before[route] + 1
+    assert sum(torch_ops.gram_routes.values()) == sum(before.values()) + 1
+    a = torch_ops.standardize_rows(c, device="cpu")
+    assert torch.equal(got, torch_ops.matmul_nt(a, a))
