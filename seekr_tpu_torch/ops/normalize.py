@@ -12,12 +12,12 @@ Port of ``seekr_tpu/ops/normalize.py:28-93``, in the reference pipeline's order
 A zero-std column gives NaN or inf, and Log2.post's global ``min`` then spreads
 NaN over the whole matrix, as in seekr_tpu and the reference.
 
-Past ``ops.pearson.GEMM_CHUNK`` columns (k >= 7) the chain runs over column
-blocks of that width on one buffer: every step but the shift is column-wise,
-and the shift is the min of the blocks' minima (NaN-propagating, as one
-``min``).  So no temporary is wider than one block, where the whole chain took
-some ten [m, 4^k] temporaries.  ``column_blocks["normalize"]`` counts the
-blocks the chain ran: one at k <= 6, where the chain is the unblocked one.
+The chain runs over column blocks of ``ops.pearson.GEMM_CHUNK`` columns on one
+buffer: every step but the shift is column-wise, and the shift is the min of
+the blocks' minima (NaN-propagating, as one ``min``).  So past one block (k >= 7)
+no temporary is wider than one block, where the whole chain took some ten
+[m, 4^k] temporaries.  ``column_blocks["normalize"]`` counts the blocks the
+chain ran: one at k <= 6.
 """
 
 from __future__ import annotations
@@ -44,26 +44,26 @@ def check_log2_mode(log2_mode: str) -> None:
         raise ValueError("log2 must be one of ['Log2.pre', 'Log2.post', 'Log2.none']")
 
 
-def _columns(counts: torch.Tensor, mean, std, log2_mode: str, owned: bool):
-    """The chain's column-wise steps, up to the Log2.post shift, on ``counts``
-    (the whole matrix or a block of its columns); ``owned`` lets them overwrite
-    it.  Returns (counts, mean_or_None, std_or_None)."""
+def _columns(block: torch.Tensor, mean, std, log2_mode: str):
+    """The chain's column-wise steps, up to the Log2.post shift, in place on
+    ``block`` (some columns of the chain's buffer).  Returns (mean_or_None,
+    std_or_None)."""
     if log2_mode == LOG2_PRE:
-        counts, owned = accurate_log2(counts + 1.0, out=counts if owned else None), True
+        accurate_log2(block + 1.0, out=block)
 
     if mean is not False:
-        mean = counts.mean(dim=0) if mean is None else mean.to(torch.float32)
-        counts, owned = (counts.sub_(mean) if owned else counts - mean), True
+        mean = block.mean(dim=0) if mean is None else mean.to(torch.float32)
+        block.sub_(mean)
     else:
         mean = None
 
     if std is not False:
         # population std (correction=0), as jnp.std and numpy's default
-        std = counts.std(dim=0, correction=0) if std is None else std.to(torch.float32)
-        counts, owned = (counts.div_(std) if owned else counts / std), True
+        std = block.std(dim=0, correction=0) if std is None else std.to(torch.float32)
+        block.div_(std)
     else:
         std = None
-    return counts, mean, std
+    return mean, std
 
 
 def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str, inplace: bool = False):
@@ -71,32 +71,25 @@ def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str, inplace: bo
 
     ``mean``/``std``: ``None`` computes the column statistic, ``False`` skips the
     step, a tensor is used as given (flat ``[4^k]``).  Returns
-    (normalized, mean_or_None, std_or_None).  ``counts`` is never modified
-    unless ``inplace`` hands it over; the chain's own temporaries are updated in
-    place.  Past one column block the chain runs on one buffer: ``counts`` when
-    handed over, else one copy of it.
+    (normalized, mean_or_None, std_or_None); a computed statistic has the
+    shape of one row (``counts.shape[1:]``) at one block, and is flat past it.
+    ``counts`` is never modified unless ``inplace`` hands it over: the chain
+    runs on one buffer, ``counts`` when handed over, else one copy of it.
     """
     check_log2_mode(log2_mode)
     with span("normalize"):
         x = counts.to(torch.float32)
-        owned = inplace or x is not counts
-        blocks = blocks_of(math.prod(x.shape[1:]))
-        column_blocks["normalize"] += len(blocks)
-        if len(blocks) == 1:
-            x, mean, std = _columns(x, mean, std, log2_mode, owned)
-            if log2_mode == LOG2_POST:
-                shift = x.min().abs()  # NaN-propagating, like jnp.min
-                x = accurate_log2(x + shift + 1.0)
-            return x, mean, std
-
         shape = x.shape
-        if not owned:
+        n_cols = math.prod(shape[1:])
+        blocks = blocks_of(n_cols)
+        column_blocks["normalize"] += len(blocks)
+        if not inplace and x is counts:
             x = x.clone(memory_format=torch.contiguous_format)
-        x = x.reshape(shape[0], -1)
+        x = x.reshape(shape[0], n_cols)
         means, stds, minima = [], [], []
         for cols in blocks:
-            block, block_mean, block_std = _columns(x[:, cols], _cut(mean, cols),
-                                                    _cut(std, cols), log2_mode, True)
+            block = x[:, cols]
+            block_mean, block_std = _columns(block, _cut(mean, cols), _cut(std, cols), log2_mode)
             means.append(block_mean)
             stds.append(block_std)
             if log2_mode == LOG2_POST:
@@ -106,7 +99,8 @@ def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str, inplace: bo
             for cols in blocks:
                 block = x[:, cols]
                 accurate_log2(block + shift + 1.0, out=block)
-        return x.view(shape), _whole(mean, means), _whole(std, stds)
+        stat_shape = shape[1:] if len(blocks) == 1 else (n_cols,)
+        return x.view(shape), _whole(mean, means, stat_shape), _whole(std, stds, stat_shape)
 
 
 def _cut(v, cols: slice):
@@ -114,11 +108,11 @@ def _cut(v, cols: slice):
     return v if v is None or v is False else v.reshape(-1)[cols]
 
 
-def _whole(given, parts: list):
-    """A statistic as the unblocked chain returns it: computed, the blocks' parts
-    joined; given, as float32; skipped, None."""
+def _whole(given, parts: list, shape):
+    """A statistic as the chain returns it: computed, the blocks' parts joined
+    in ``shape``; given, as float32; skipped, None."""
     if given is None:
-        return torch.cat(parts)
+        return torch.cat(parts).view(shape)
     return None if given is False else given.to(torch.float32)
 
 

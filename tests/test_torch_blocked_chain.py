@@ -1,8 +1,8 @@
 """The normalize chain and the row standardization over column blocks.
 
 Past ``ops.pearson.GEMM_CHUNK`` (4,096) columns, k >= 7, both run block by
-block on one buffer; at k <= 6 there is one block and the chain is the
-unblocked one, bit for bit.  The references are the benchmark's float64 plain
+block on one buffer; at k <= 6 there is one block, and both are the plain
+unblocked chain, bit for bit.  The references are the benchmark's float64 plain
 references (``benchmarks/reference/``), loaded by path: ``kmer_ref.py`` and its
 column-blocked, in-place copy ``kmer_ref_blocked.py``.
 """
@@ -142,6 +142,52 @@ def test_blocked_chain_with_given_and_skipped_statistics(log2):
         assert (got[2] is None) == (given_std is False)
         if given_std is not False:
             assert torch.equal(got[2], want_std)
+
+
+# (mean, std) of each call: computed (None), skipped (False) or given
+STAT_CASES = ((None, None), (False, None), (None, False), (False, False),
+              ("given", "given"), ("given", None))
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("layout", ["flat", "unflattened"])
+@pytest.mark.parametrize("log2", ["Log2.pre", "Log2.post", "Log2.none"])
+def test_one_block_chain_is_the_plain_chain_bitwise(log2, layout, inplace):
+    # at k = 6 the blocked loop runs once over the whole width: its output and
+    # statistics are the plain chain's on the whole tensor, bits and shapes
+    bases, lengths = corpus(6, 24, 3000, seed=29)
+    raw = count_torch(bases, lengths, 6)
+    if layout == "unflattened":
+        raw = raw.reshape(24, 16, 256)
+    g = torch.Generator().manual_seed(29)
+    given = torch.rand(raw.shape[1:], generator=g, dtype=torch.float64) + 0.5
+    for case_mean, case_std in STAT_CASES:
+        mean = given if case_mean == "given" else case_mean
+        std = given + 1.0 if case_std == "given" else case_std
+        x = raw.clone()
+        before = normalize.column_blocks["normalize"]
+        got, got_mean, got_std = normalize_graph(x, mean, std, log2, inplace=inplace)
+        assert normalize.column_blocks["normalize"] == before + 1
+
+        want = accurate_log2(raw + 1.0) if log2 == "Log2.pre" else raw
+        want_mean = want_std = None
+        if mean is not False:
+            want_mean = want.mean(dim=0) if mean is None else mean.float()
+            want = want - want_mean
+        if std is not False:
+            want_std = want.std(dim=0, correction=0) if std is None else std.float()
+            want = want / want_std
+        if log2 == "Log2.post":
+            want = accurate_log2(want + want.min().abs() + 1.0)
+        assert got.shape == raw.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        for a, b in ((got_mean, want_mean), (got_std, want_std)):
+            assert (a is None) == (b is None)
+            assert b is None or (a.shape == b.shape and torch.equal(a, b))
+        if inplace:  # the caller's buffer, overwritten
+            assert got.data_ptr() == x.data_ptr()
+        else:
+            assert torch.equal(x, raw)
 
 
 def test_a_zero_std_column_in_one_block_spreads_nan_everywhere():
