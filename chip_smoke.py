@@ -24,7 +24,11 @@ one exception is phase 5, which times each hand-written kernel alone.
    about 1.4 kb, capped at 4,096): r finite and within 1e-4 of a float64
    recomputation of normalize + Pearson from the kernel's counts; the self
    Gram's route (``ops.pearson.gram_routes``: the split TF32 product by
-   default) is printed;
+   default) is printed; on a card the normalize chain and the row
+   standardization must take the fused route (``ops.normalize.routes``,
+   ``ops.pearson.standardize_routes``) with one launch of each epilogue kernel
+   (``csrc/epilogue.cu``: column statistics, normalize, row statistics,
+   standardize-split) for the one column block of k = 6;
 4. the same corpus through ``KmerCounter(fasta).get_counts()`` and ``pearson``
    (the blocked path): exactly symmetric, within 1e-4 of phase 3; a FASTA with
    two transcripts past the long-sequence threshold against the numpy oracle;
@@ -35,7 +39,14 @@ one exception is phase 5, which times each hand-written kernel alone.
    its device time (CUDA events; and per launch), its bound (the bytes it must
    move at the HBM rate, and the share of it reached), the plain version's time
    and a library yardstick; for the hi-blocked kernel also a write-only pass
-   over the same output, and its time and bound at phase 2's widest k;
+   over the same output, and its time and bound at phase 2's widest k; and
+   each epilogue kernel alone on the forward's operand, [13,000 x 4,096] at
+   k = 6 and one 4,096-column block of the k = 9 buffer: its time, its bound
+   (the bytes it must move at the HBM rate), its plain twin's time and the
+   torch chain's launches it replaces, and its largest difference from the
+   twin, absolute and in float32 ulp: the statistics within one ulp, the
+   shift and each element bitwise given the kernel's statistics, else the
+   run fails;
 6. the statistics chain at k = 4 on the same corpus, in a temporary working
    directory: ``find_dist`` (a 100,000-value background sample),
    ``fit_distributions`` (norm, expon, rayleigh, uniform), ``find_pval`` for
@@ -176,7 +187,8 @@ Launch counts are set to 0 just before phases 3, 4, 6, 7, 8, 9 (the workflow,
 ``domain_pearson`` and the PWM counts), 10 (the profiles and the barplots'
 counts) and each main-path section of phase 11 drive the main path and read just
 after; in phase 12 each child process counts from 0 over its main path and
-prints its counts on its JSON line, which are added to the main path's.  The
+prints its counts on its JSON line, which are added to the main path's (the
+count kernels' only: the children's epilogue launches are not counted).  The
 run fails if a kernel of the path was not launched, phases 9 and 10
 fail if their counting did not launch ``count_kmers_smem``, phase 11 if its
 pipeline did not launch ``count_kmers_smem`` on every shard in every run or its
@@ -213,6 +225,13 @@ REPLACES = {  # kernel -> the TPU kernel body it replaces
     "count_kmers_smem": "seekr_tpu/ops/count_pallas.py:67",
     "count_kmers_hiblocked": "seekr_tpu/ops/count_pallas.py:125",
 }
+EPILOGUE_SOURCE = "seekr_tpu_torch/csrc/epilogue.cu"
+EPILOGUE_REPLACES = "none: seekr_tpu's normalize and Pearson are XLA; added for the H100"
+# bytes each epilogue kernel must move per element of its block: column and
+# row statistics read it, normalize reads and writes it, standardize-split
+# reads it and writes both TF32 halves
+EPILOGUE_BYTES = {"epilogue_column_stats": 4, "epilogue_normalize": 8,
+                  "epilogue_row_stats": 4, "epilogue_standardize_split": 12}
 DIGIT2CHAR = np.frombuffer(b"AGTCN", dtype=np.uint8)
 
 
@@ -483,14 +502,27 @@ def record_err(state, name, err):
     errs[name] = max(errs.get(name, 0.0), float(err))
 
 
+def reset_launches():
+    """Set every kernel's launch count to 0 (a main-path section starts)."""
+    from seekr_tpu_torch.ops import count_cuda, epilogue_cuda
+
+    count_cuda.reset_launches()
+    epilogue_cuda.reset_launches()
+
+
 def read_launches(state, phase):
     """Add the launches made since the last reset to the main-path counts."""
-    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops import count_cuda, epilogue_cuda
 
     main = state.setdefault("launches", dict.fromkeys(count_cuda.KERNELS, 0))
     for name, n in count_cuda.launches.items():
         main[name] += n
-    log(f"{phase}: kernel launches {dict(count_cuda.launches)}")
+    epilogue = state.setdefault("epilogue_launches", dict.fromkeys(epilogue_cuda.KERNELS, 0))
+    for name, n in epilogue_cuda.launches.items():
+        epilogue[name] += n
+    log(f"{phase}: kernel launches {dict(count_cuda.launches)} "
+        f"{dict(epilogue_cuda.launches)}")
+    epilogue_cuda.reset_launches()  # sections the count kernels' resets miss stay out
 
 
 def f64_reference(raw, ncols):
@@ -512,7 +544,8 @@ def phase_pipeline(device, scale, state):
     import torch
 
     from seekr_tpu_torch.models.pipeline import SeekrPipeline
-    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops import epilogue_cuda
+    from seekr_tpu_torch.ops import normalize as normalize_ops
     from seekr_tpu_torch.ops import pearson as pearson_ops
     from seekr_tpu_torch.ops.count import count_graph
 
@@ -525,14 +558,28 @@ def phase_pipeline(device, scale, state):
     bt = torch.as_tensor(bases, device=device)  # set-up: one upload of the corpus
     nt = torch.as_tensor(lengths, device=device)
 
-    count_cuda.reset_launches()
-    routes = dict(pearson_ops.gram_routes)
+    def taken(counts, before):
+        return sorted(k for k, v in counts.items() if v != before[k])
+
+    reset_launches()
+    before = [dict(c) for c in (pearson_ops.gram_routes, normalize_ops.routes,
+                                pearson_ops.standardize_routes)]
     sim = pipe.forward(bt, nt)
     sync(device)
-    routes = sorted(k for k, v in pearson_ops.gram_routes.items() if v != routes[k])
+    routes = [taken(c, b) for c, b in zip((pearson_ops.gram_routes, normalize_ops.routes,
+                                           pearson_ops.standardize_routes), before)]
+    epilogue = dict(epilogue_cuda.launches)
     read_launches(state, "pipeline")
 
-    out = {"phase": "pipeline", "m": m, "k": PIPELINE_K, "self_gram_route": routes}
+    out = {"phase": "pipeline", "m": m, "k": PIPELINE_K, "self_gram_route": routes[0],
+           "normalize_route": routes[1], "standardize_route": routes[2],
+           "epilogue_launches": epilogue}
+    # one column block at k = 6: one launch of each epilogue kernel on a card
+    want = ((["fused"], ["fused"], dict.fromkeys(epilogue_cuda.KERNELS, 1)) if is_cuda(device)
+            else (["torch"], ["torch"], dict.fromkeys(epilogue_cuda.KERNELS, 0)))
+    if (routes[1], routes[2], epilogue) != want:
+        raise AssertionError(f"the forward's epilogue: routes {routes[1]}, {routes[2]} and "
+                             f"launches {epilogue}, where {want} was due")
     if sim.shape != (m, m) or not bool(torch.isfinite(sim).all()):
         raise AssertionError(f"pipeline output: shape {tuple(sim.shape)}, "
                              f"finite {bool(torch.isfinite(sim).all())}")
@@ -551,7 +598,6 @@ def phase_counter(device, scale, state):
     """Main path, counter entry: KmerCounter(fasta).get_counts() + pearson."""
     from seekr_tpu_torch.models.counter import KmerCounter
     from seekr_tpu_torch.models.pearson import pearson
-    from seekr_tpu_torch.ops import count_cuda
     from seekr_tpu_torch.ops.count import count_kmers_host
 
     bases, lengths = state["corpus"]
@@ -571,7 +617,7 @@ def phase_counter(device, scale, state):
         write_fasta_file(fa_long, long_seqs)
         write_fasta_file(fa_large_k, large_k_seqs)
 
-        count_cuda.reset_launches()
+        reset_launches()
         counts = KmerCounter(str(fa), k=PIPELINE_K, silent=True, device=device).get_counts()
         sim = pearson(counts, counts, device=device)
         long_counts = KmerCounter(str(fa_long), k=PIPELINE_K, **raw).get_counts()
@@ -705,7 +751,165 @@ def phase_timing(device, scale, state):
             f"{[tuple(b.shape) for b, _ in inputs]}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s), plain {plain_ms:.3f} ms, "
             f"bincount yardstick {library_ms:.3f} ms")
-    state["kernels"] = rows
+    state["kernels"] = rows + epilogue_timing(device, scale, state)
+
+
+def _gap(a, b) -> tuple:
+    """Largest distance of two float32 tensors, in ulp and absolute (NaN where
+    both are NaN)."""
+    import torch
+
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        raise AssertionError("the kernel's NaN are not its twin's")
+    if not (~nan).any():
+        return 0, 0.0
+    a, b = a[~nan], b[~nan]
+    return (int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max()),
+            float((a.double() - b.double()).abs().max()))
+
+
+def _held(label, name, what, gaps, most_ulp) -> tuple:
+    """The largest of ``gaps`` (ulp, absolute); raises past ``most_ulp`` ulp."""
+    ulp, err = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    if ulp > most_ulp:
+        raise AssertionError(f"{name} at {label}: {what} {ulp} float32 ulp from its twin "
+                             f"(at most {most_ulp})")
+    return ulp, err
+
+
+def epilogue_timing(device, scale, state) -> list:
+    """Each epilogue kernel alone on the forward's operand: the k = 6 count
+    buffer [m, 4,096], and the first 4,096-column block of the k = 9 buffer
+    [m, 262,144] (its rows 1 MB apart), Log2.post with computed statistics.
+
+    ``library_ms`` is the torch chain's launches the kernel replaces on the same
+    block: the column mean, std and min (column statistics); ``sub_``, ``div_``
+    and the shifted ``accurate_log2`` (normalize); the row mean and std (row
+    statistics); the rows' ``sub``, ``div_`` and ``split_tf32`` (standardize-split).
+    Each is held to its twin, else this raises: the column mean and std and
+    the rows' mean and std within one float32 ulp of the twin's (float64 sums in
+    another order), the shift and every element written bitwise the twin's
+    given the kernel's statistics.  ``max_abs_err`` is the largest absolute
+    difference from the twin, ``max_ulp`` the same in float32 ulp.  The timing
+    loops' launches are not counted.
+    """
+    import torch
+
+    from seekr_tpu_torch.ops import epilogue_cuda as E
+    from seekr_tpu_torch.ops.count import count_graph
+    from seekr_tpu_torch.ops.math import accurate_log2
+    from seekr_tpu_torch.ops.pearson import split_tf32
+
+    bases, lengths = state["corpus"]
+    bt, nt = torch.as_tensor(bases, device=device), torch.as_tensor(lengths, device=device)
+    found = {name: {} for name in E.KERNELS}
+    for label, k in (("k6", PIPELINE_K), ("k9_block", LARGE_K)):
+        raw = count_graph(bt, nt, k)
+        m, n = raw.shape
+        cols = slice(0, min(n, 4096))
+        width = cols.stop
+        blk = raw[:, cols]
+        bound = {name: b * m * width / HBM_BYTES_PER_S * 1e3
+                 for name, b in EPILOGUE_BYTES.items()}
+
+        def stats(engine, x):
+            work = engine(x, [cols], None, None, pre=False, post=True)
+            work.stats(0, cols)
+            return work
+
+        twin_x = blk.clone()
+        work, twin = stats(E.Normalize, raw), stats(E.NormalizePlain, twin_x)
+        name = "epilogue_column_stats"
+        ulp, err = _held(label, name, "mean and std", (_gap(work.mean[cols], twin.mean[cols]),
+                                                       _gap(work.std[cols], twin.std[cols])), 1)
+        fed = E.NormalizePlain(twin_x, [cols], work.mean[cols], work.std[cols], pre=False,
+                               post=True)
+        fed.stats(0, cols)
+        _held(label, name, "the shift", [_gap(work.running.abs(), fed.running.abs())], 0)
+        found[name][label] = {
+            "ms": cuda_ms(lambda: stats(E.Normalize, raw), scale.reps),
+            "plain_ms": cuda_ms(lambda: stats(E.NormalizePlain, twin_x), scale.reps),
+            "library_ms": cuda_ms(lambda: (blk.mean(dim=0), blk.std(dim=0, correction=0),
+                                           blk.min()), scale.reps),
+            "max_abs_err": err, "max_ulp": ulp}
+
+        work.apply(cols)
+        fed.apply(cols)
+        sync(device)
+        mean, std, shift = work.mean[cols], work.std[cols], work.running[-1].abs()
+        err = float((blk - twin_x).abs().nan_to_num().max())
+        if not torch.equal(blk.view(torch.int32), twin_x.view(torch.int32)):
+            raise AssertionError(f"epilogue_normalize is not its twin at {label}")
+
+        def chain():
+            blk.sub_(mean)
+            blk.div_(std)
+            accurate_log2(blk + shift + 1.0, out=blk)
+
+        # each reapplies the steps to the block it changed: its values stay finite
+        found["epilogue_normalize"][label] = {
+            "ms": cuda_ms(lambda: work.apply(cols), scale.reps),
+            "plain_ms": cuda_ms(lambda: fed.apply(cols), scale.reps),
+            "library_ms": cuda_ms(chain, scale.reps), "max_abs_err": err, "max_ulp": 0}
+        del twin_x, twin, fed
+
+        moments = E.row_moments(raw, [cols])
+        twin_moments = E.row_moments_plain(raw, [cols])
+        ulp, err = _held(label, "epilogue_row_stats", "the rows' mean and std",
+                         [_gap(a, b) for a, b in zip(E.row_stats(raw, moments),
+                                                     E.row_stats(raw, twin_moments))], 1)
+        found["epilogue_row_stats"][label] = {
+            "ms": cuda_ms(lambda: E.row_moments(raw, [cols]), scale.reps),
+            "plain_ms": cuda_ms(lambda: E.row_moments_plain(raw, [cols]), scale.reps),
+            "library_ms": cuda_ms(lambda: (blk.mean(dim=1), blk.std(dim=1, correction=0)),
+                                  scale.reps),
+            "max_abs_err": err, "max_ulp": ulp}
+
+        halves = [torch.empty((m, width), device=device) for _ in range(4)]
+        got = E.standardize_split(raw, moments, cols, *halves[:2])
+        want = E.standardize_split_plain(raw, moments, cols, *halves[2:])
+        sync(device)
+        err = max(float((a - b).abs().nan_to_num().max()) for a, b in zip(got, want))
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"epilogue_standardize_split is not its twin at {label}")
+        row_mean, row_std = (v[:, None] for v in E.row_stats(raw, moments))
+        a = torch.empty((m, width), device=device)
+
+        def split_chain():
+            torch.sub(blk, row_mean, out=a)
+            a.div_(row_std)
+            split_tf32(a, *halves[2:])
+
+        found["epilogue_standardize_split"][label] = {
+            "ms": cuda_ms(lambda: E.standardize_split(raw, moments, cols, *halves[:2]),
+                          scale.reps),
+            "plain_ms": cuda_ms(lambda: E.standardize_split_plain(raw, moments, cols,
+                                                                  *halves[2:]), scale.reps),
+            "library_ms": cuda_ms(split_chain, scale.reps), "max_abs_err": err, "max_ulp": 0}
+        for name in E.KERNELS:
+            found[name][label]["bound_ms"] = bound[name]
+        del raw, blk, work, halves, a, got, want
+        torch.cuda.empty_cache()
+    E.reset_launches()
+
+    rows = []
+    for name in E.KERNELS:
+        k6 = found[name]["k6"]
+        rows.append({
+            "name": name, "route": "cuda", "source": EPILOGUE_SOURCE,
+            "replaces": EPILOGUE_REPLACES,
+            "launches": state.get("epilogue_launches", {}).get(name, 0),
+            "max_abs_err": max(v["max_abs_err"] for v in found[name].values()),
+            "max_ulp": max(v["max_ulp"] for v in found[name].values()),
+            "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+            "bound_by": "bytes", "library_ms": k6["library_ms"],
+            "k9_block": found[name]["k9_block"]})
+        log(f"{name}: k = 6 {k6['ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
+            f"({k6['bound_ms'] / k6['ms']:.1%}), plain {k6['plain_ms']:.3f} ms, torch chain "
+            f"{k6['library_ms']:.3f} ms; k = 9 block {json.dumps(found[name]['k9_block'])}")
+    return rows
 
 
 def hiblocked_detail(inputs, k, scale, device, state):
@@ -850,7 +1054,7 @@ def phase_stats(device, scale, state):
             write_fasta_file("self.fa", seqs[:s])
             vectors = (f"bkg_mean_{STATS_K}mers.npy", f"bkg_std_{STATS_K}mers.npy")
 
-            count_cuda.reset_launches()
+            reset_launches()
             np.random.seed(state["seed"])
             bkg = find_dist("corpus.fa", k_mer=STATS_K, subsetting=True,
                             subset_size=scale.stats_subset, fit_model=False, device=device)
@@ -1121,7 +1325,7 @@ def phase_serve(device, scale, state):
             vectors = (f"bkg_mean_{SERVE_K}mers.npy", f"bkg_std_{SERVE_K}mers.npy")
 
             # -- the main path: load, warm up, traffic ----------------------
-            count_cuda.reset_launches()
+            reset_launches()
             svc = SeekrService(*vectors, k=SERVE_K, targets="targets.fa", fitres=bkg,
                                grow_quantum=SERVE_QUANTUM, device=device)
             out["resident_rows"] = int(svc._targets_std.shape[0])
@@ -1149,7 +1353,7 @@ def phase_serve(device, scale, state):
             svc.coalesce = True
 
             # -- the main path: growth, snapshot, socket --------------------
-            count_cuda.reset_launches()
+            reset_launches()
             before = svc.query(check_q)["sim"]
             resident = svc._targets_std
             svc.add_targets(grow_in)
@@ -1354,7 +1558,7 @@ def phase_leiden(device, scale, state):
 
             # -- the main path: dense, streamed with its Gephi export, and the
             # dense export on the head of the corpus --------------------------
-            count_cuda.reset_launches()
+            reset_launches()
             membership = leiden.kmer_leiden("families.fa", *vectors, k, **run)
             streamed = leiden.kmer_leiden("families.fa", *vectors, k, stream=True,
                                           csvfile="streamed", **run)
@@ -1678,7 +1882,7 @@ def phase_workflow(device, scale, state):
             seed = state["seed"] + 10
 
             # -- pipeline: the self run with Leiden (API), the cross run (CLI) --
-            count_cuda.reset_launches()
+            reset_launches()
             res = run_workflow("families.fa", background="corpus.fa", k=k,
                                subset_size=scale.stats_subset, seed=seed, leiden=True,
                                leiden_cutoff=WF_CUTOFF, outdir="self", device=device)
@@ -1819,7 +2023,7 @@ def phase_workflow(device, scale, state):
             write_fasta_file("dom_q.fa", seqs[:scale.dom_queries])
             write_fasta_file("dom_t.fa", seqs[:scale.dom_targets])
             window, slide = scale.dom_window
-            count_cuda.reset_launches()
+            reset_launches()
             dom = DomainPearson("dom_q.fa", "dom_t.fa", "corpus.fa", r_values_path="r.csv",
                                 percentiles_path="pct.csv", k=k, window=window, slide=slide,
                                 device=device)
@@ -1878,7 +2082,7 @@ def phase_workflow(device, scale, state):
                 write_pwm(f"pwms/P{i:03d}.txt", table)
             fixture = here / "tests" / "fixtures" / "pwms" / "SYN1_0.6.txt"
             Path("pwms/SYN1_0.6.txt").write_bytes(fixture.read_bytes())
-            count_cuda.reset_launches()
+            reset_launches()
             pwm_counts = KmerCounter("corpus.fa", k=scale.pwm_k, silent=True,
                                      device=device).get_counts()
             scores = CountsWeighter("pwms", pwm_counts, k=scale.pwm_k,
@@ -2165,7 +2369,7 @@ def phase_plots(device, scale, state):
 
             # -- the main path: the dendrogram's profiles and both directions,
             # the heatmap's orders, the barplots' counts and rows ---------------
-            count_cuda.reset_launches()
+            reset_launches()
             counter = KmerCounter("families.fa", k=k, silent=True, device=device)
             profiles = counter.get_counts()
             labeled = LabeledMatrix(profiles, [h[1:] for h in counter.headers], counter.kmers)
@@ -2385,7 +2589,7 @@ def counted(state, name):
     (into the kernels line); yields the section's own launches, filled at exit."""
     from seekr_tpu_torch.ops import count_cuda
 
-    count_cuda.reset_launches()
+    reset_launches()
     launched = {}
     yield launched
     launched.update(count_cuda.launches)
@@ -2817,7 +3021,7 @@ def child_pipeline(scale, seed: int, coordinator: str, pid: int, device: str) ->
     bases, lengths = make_corpus(scale.corpus_m, scale.corpus_cap, seed)
     bt, nt = torch.as_tensor(bases, device=dev), torch.as_tensor(lengths, device=dev)
     step = dist.distributed_pipeline(mesh, k=PIPELINE_K)
-    count_cuda.reset_launches()
+    reset_launches()
     for _ in range(scale.mesh_reps + 1):
         got = step(bt, nt)
     launches = dict(count_cuda.launches)
@@ -2865,7 +3069,7 @@ def child_cli(argv) -> dict:
     from seekr_tpu_torch.ops import count_cuda
     from seekr_tpu_torch.parallel import comm
 
-    count_cuda.reset_launches()
+    reset_launches()
     cli.main(list(argv))
     return {"role": "cli", "pid": comm.process_index(), "backends": comm.backends(),
             "launches": dict(count_cuda.launches)}
@@ -3165,15 +3369,17 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no seekr_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(here))
-    from seekr_tpu_torch.ops import count_cuda
+    from seekr_tpu_torch.ops import count_cuda, epilogue_cuda
 
     device = torch.device("cuda", 0)
     state = run(device, FULL, args.seed)
-    idle = [name for name in count_cuda.KERNELS if state["launches"][name] == 0]
+    launches = {**state["launches"], **state["epilogue_launches"]}
+    idle = [name for name in (*count_cuda.KERNELS, *epilogue_cuda.KERNELS)
+            if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels of the main path never launched: {idle}")
     for row in state["kernels"]:  # phase 6 launched after phase 5 built the rows
-        row["launches"] = state["launches"][row["name"]]
+        row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": state["kernels"]}), flush=True)
     print(state["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

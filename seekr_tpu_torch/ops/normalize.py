@@ -18,6 +18,15 @@ the blocks' minima (NaN-propagating, as one ``min``).  So past one block (k >= 7
 no temporary is wider than one block, where the whole chain took some ten
 [m, 4^k] temporaries.  ``column_blocks["normalize"]`` counts the blocks the
 chain ran: one at k <= 6.
+
+On a card the chain's buffer (``counts`` handed over, else its copy) takes the
+fused route where the kernels take it (``ops/epilogue_cuda.takes``): per block
+one column-statistics launch (the mean and std in float64, and the running
+minimum of the standardized values for the shift), then per block one launch of
+the chain's elementwise steps in place.  Each element is the chain's float32
+arithmetic on float64-accurate statistics, so it can differ from the torch chain
+in the last bits (given statistics give the chain's bits); ``routes`` counts each
+call's route.  A CPU tensor is the torch chain, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from seekr_tpu_torch.ops import epilogue_cuda
 from seekr_tpu_torch.ops.math import accurate_log2
 from seekr_tpu_torch.ops.pearson import blocks_of
 from seekr_tpu_torch.utils.profiler import span
@@ -37,6 +47,7 @@ LOG2_NONE = "Log2.none"
 LOG2_MODES = (LOG2_PRE, LOG2_POST, LOG2_NONE)
 
 column_blocks = {"normalize": 0}
+routes = {"fused": 0, "torch": 0}
 
 
 def check_log2_mode(log2_mode: str) -> None:
@@ -74,17 +85,24 @@ def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str, inplace: bo
     (normalized, mean_or_None, std_or_None); a computed statistic has the
     shape of one row (``counts.shape[1:]``) at one block, and is flat past it.
     ``counts`` is never modified unless ``inplace`` hands it over: the chain
-    runs on one buffer, ``counts`` when handed over, else one copy of it.
+    runs on one buffer, ``counts`` when handed over, else one copy of it.  On a
+    card that buffer takes the fused kernels where they take it.
     """
     check_log2_mode(log2_mode)
     with span("normalize"):
         x = counts.to(torch.float32)
+        if not inplace and x is counts:
+            x = x.clone(memory_format=torch.contiguous_format)
         shape = x.shape
         n_cols = math.prod(shape[1:])
         blocks = blocks_of(n_cols)
         column_blocks["normalize"] += len(blocks)
-        if not inplace and x is counts:
-            x = x.clone(memory_format=torch.contiguous_format)
+        stat_shape = shape[1:] if len(blocks) == 1 else (n_cols,)
+        if epilogue_cuda.takes(x, mean, std):
+            routes["fused"] += 1
+            work = fused_chain(x.view(shape[0], n_cols), blocks, mean, std, log2_mode)
+            return x, _whole(mean, [work.mean], stat_shape), _whole(std, [work.std], stat_shape)
+        routes["torch"] += 1
         x = x.reshape(shape[0], n_cols)
         means, stds, minima = [], [], []
         for cols in blocks:
@@ -99,8 +117,24 @@ def normalize_graph(counts: torch.Tensor, mean, std, log2_mode: str, inplace: bo
             for cols in blocks:
                 block = x[:, cols]
                 accurate_log2(block + shift + 1.0, out=block)
-        stat_shape = shape[1:] if len(blocks) == 1 else (n_cols,)
         return x.view(shape), _whole(mean, means, stat_shape), _whole(std, stds, stat_shape)
+
+
+def fused_chain(x: torch.Tensor, blocks: list, mean, std, log2_mode: str,
+                engine=epilogue_cuda.Normalize):
+    """The fused route on the ``[m, n]`` buffer ``x``, in place: each block's
+    column statistics in order (the shift needs every block's minimum), then
+    each block's elementwise steps.  ``engine`` is the kernels' launcher, or
+    its plain twin ``epilogue_cuda.NormalizePlain`` on any device.  Returns
+    the engine, whose ``mean``/``std`` are the flat statistics used."""
+    work = engine(x, blocks, mean, std, pre=log2_mode == LOG2_PRE, post=log2_mode == LOG2_POST)
+    if work.needs_stats:
+        for index, cols in enumerate(blocks):
+            work.stats(index, cols)
+    if work.needs_apply:
+        for cols in blocks:
+            work.apply(cols)
+    return work
 
 
 def _cut(v, cols: slice):
@@ -112,7 +146,7 @@ def _whole(given, parts: list, shape):
     """A statistic as the chain returns it: computed, the blocks' parts joined
     in ``shape``; given, as float32; skipped, None."""
     if given is None:
-        return torch.cat(parts).view(shape)
+        return (parts[0] if len(parts) == 1 else torch.cat(parts)).view(shape)
     return None if given is False else given.to(torch.float32)
 
 

@@ -11,7 +11,12 @@ The self Gram of ``pearson_graph`` on a card is, under the default precision
 counterpart of seekr_tpu's bf16x3 ``HIGH``: the operand is split into TF32
 halves ``a = hi + lo`` (``split_tf32``) and ``a @ a.T`` is taken as
 ``hi @ hi.T + X + X.T`` with ``X = hi @ lo.T``, in TF32 products
-(``split_gram``).  ``gram_routes`` counts the self Grams by route.
+(``split_gram``).  ``gram_routes`` counts the self Grams by route.  On that
+route the row standardization and the split are fused where the kernels take
+the buffer (``ops/epilogue_cuda.py``): each row's moments in float64 (one read),
+then each column block standardized and split straight into the Gram's TF32
+halves, the standardized operand never written; ``standardize_routes`` counts
+the standardizations by route (``fused``, ``torch``).
 
 Past ``GEMM_CHUNK`` columns (k >= 7) the row standardization and the Gram run
 over column blocks of that width: the row statistics are summed block by block
@@ -28,10 +33,12 @@ row-wise multiply-sum, for the sampled background of find_dist.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
 
+from seekr_tpu_torch.ops import epilogue_cuda
 from seekr_tpu_torch.ops.precision import matmul_precision, pearson_precision
 from seekr_tpu_torch.utils.device import resolve_device
 from seekr_tpu_torch.utils.profiler import span
@@ -59,6 +66,7 @@ def _row_standardize(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     division run block by block on one buffer: ``c`` when handed over, else a
     copy.
     """
+    standardize_routes["torch"] += 1
     feat = tuple(range(1, c.dim()))
     x = c.to(torch.float32)
     owned = inplace or x is not c
@@ -95,6 +103,7 @@ GEMM_CHUNK = 4096
 
 column_blocks = {"standardize": 0, "gram": 0}
 gram_routes = {"split": 0, "fp32": 0, "tf32": 0}
+standardize_routes = {"fused": 0, "torch": 0}
 
 # float32 keeps 13 mantissa bits more than TF32's 10: adding half of the lowest
 # kept bit and clearing the 13 rounds to nearest, ties away from zero (PTX's
@@ -170,7 +179,7 @@ def _add_hi_hi(out: torch.Tensor | None, hi: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def split_gram(a: torch.Tensor) -> torch.Tensor:
+def split_gram(a: torch.Tensor, halves=None) -> torch.Tensor:
     """``a @ a.T`` as TF32 products on the tensor cores, fp32's error class.
 
     With ``a = hi + lo`` (``split_tf32``), ``a a^T = hi hi^T + hi lo^T + lo hi^T
@@ -181,38 +190,47 @@ def split_gram(a: torch.Tensor) -> torch.Tensor:
     columns a product.  Past ``GEMM_CHUNK`` columns each piece is split into
     the same scratch, and ``X`` and the ``hi hi^T`` sum gather every piece's
     products; ``X + X^T`` is added once at the end.
+
+    ``halves(cols, hi, lo)`` writes the halves of the columns ``cols`` into the
+    scratch ``hi`` and ``lo`` and returns them: by default ``split_tf32`` of
+    ``a[:, cols]``; the fused route hands the kernel that standardizes the raw
+    rows and splits them in one pass (``a`` is then the unstandardized buffer).
     """
+    if halves is None:
+        def halves(cols, hi, lo):
+            return split_tf32(a[:, cols], hi, lo)
     blocks = blocks_of(a.shape[1])
     column_blocks["gram"] += len(blocks)
     with span("pearson.gram"), pearson_precision(tf32=True):
-        if len(blocks) == 1:
-            hi, lo = split_tf32(a)
-            x = hi @ lo.T
-            return _add_hi_hi(x + x.T, hi)
         hi = lo = x = out = None
         for cols in blocks:
-            piece = a[:, cols]
-            if hi is None or hi.shape != piece.shape:  # one scratch pair a width
-                hi, lo = (torch.empty(piece.shape, dtype=a.dtype, device=a.device)
+            width = len(range(a.shape[1])[cols])
+            if hi is None or hi.shape[1] != width:  # one scratch pair a width
+                hi, lo = (torch.empty((a.shape[0], width), dtype=a.dtype, device=a.device)
                           for _ in range(2))
-            hi, lo = split_tf32(piece, hi, lo)
+            hi, lo = halves(cols, hi, lo)
+            if len(blocks) == 1:
+                x = hi @ lo.T
+                return _add_hi_hi(x + x.T, hi)
             x = hi @ lo.T if x is None else x.addmm_(hi, lo.T)
             out = _add_hi_hi(out, hi)
         return out.add_(x).add_(x.T)
 
 
-def self_gram(a: torch.Tensor) -> torch.Tensor:
-    """``a @ a.T`` of one operand, by the route ``gram_routes`` counts: the
-    split TF32 product on a card under the default precision (``high``),
-    else ``gram(a, a)`` in float32 (``highest``, and any CPU tensor, which has
-    no TF32) or in TF32 (``default``)."""
+def gram_route(a: torch.Tensor) -> str:
+    """The self Gram's route: ``split``, the split TF32 product, on a card under
+    the default precision (``high``); else ``fp32`` (``highest``, and any CPU
+    tensor, which has no TF32) or ``tf32`` (``default``)."""
     precision = matmul_precision()
     if precision == "default":
-        route = "tf32"
-    elif precision == "high" and a.is_cuda:
-        route = "split"
-    else:
-        route = "fp32"
+        return "tf32"
+    return "split" if precision == "high" and a.is_cuda else "fp32"
+
+
+def self_gram(a: torch.Tensor) -> torch.Tensor:
+    """``a @ a.T`` of one operand, by the route ``gram_routes`` counts
+    (``gram_route``): ``split_gram``, else ``gram(a, a)`` in float32 or TF32."""
+    route = gram_route(a)
     gram_routes[route] += 1
     return split_gram(a) if route == "split" else gram(a, a)
 
@@ -221,11 +239,33 @@ def pearson_graph(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     """Self-Pearson of one count tensor: row-standardize + self Gram / n.
 
     Equivalent to ``pearson_device(c, c)``; accepts the unflattened 3-D count
-    tensor too.  ``inplace`` hands ``c`` over to the row standardization.
+    tensor too.  ``inplace`` hands ``c`` over to the row standardization.  On
+    the split route, where the kernels take the buffer, the standardization
+    and the split are fused (``fused_pearson``) and ``c`` is only read.
     """
+    if gram_route(c) == "split":
+        x = c.to(torch.float32).reshape(c.shape[0], -1)
+        if epilogue_cuda.takes(x):
+            return fused_pearson(x)
     c = _row_standardize(c, inplace)
     c = c.reshape(c.shape[0], -1)
     return divide(self_gram(c), c.shape[1])
+
+
+def fused_pearson(x: torch.Tensor, moments=epilogue_cuda.row_moments,
+                  halves=epilogue_cuda.standardize_split) -> torch.Tensor:
+    """``pearson_graph`` of the ``[m, n]`` buffer ``x`` on the fused route: the
+    rows' float64 moments over every column block, then ``split_gram`` with
+    each block standardized and split by ``halves``.  ``moments`` and
+    ``halves`` are the kernels' launchers, or their plain twins
+    (``epilogue_cuda.row_moments_plain``, ``standardize_split_plain``) on any
+    device."""
+    blocks = blocks_of(x.shape[1])
+    column_blocks["standardize"] += len(blocks)
+    standardize_routes["fused"] += 1
+    gram_routes["split"] += 1
+    halves = partial(halves, x, moments(x, blocks))
+    return divide(split_gram(x, halves), x.shape[1])
 
 
 def pearson_device(counts1, counts2, row_standardize: bool = True,

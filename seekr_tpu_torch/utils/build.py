@@ -37,6 +37,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _COUNT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
 _DEVICE_STREAM = [ctypes.c_int, ctypes.c_void_p]
+# (base, m, n, c0, width) of one column block of the epilogue kernels' [m, n] buffer
+_BLOCK_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
 
 # (name, argtypes, restype) of every exported C function
 _SIGNATURES = [
@@ -45,6 +47,24 @@ _SIGNATURES = [
     # + log2 of count_cuda.hiblock_plan's slice_bins
     ("seekr_count_kmers_hiblocked", [*_COUNT_ARGS, ctypes.c_int, *_DEVICE_STREAM],
      ctypes.c_int),
+    ("seekr_epilogue_scratch_bytes", [ctypes.c_int64, ctypes.c_int], ctypes.c_int64),
+    ("seekr_epilogue_counters", [ctypes.c_int], ctypes.c_int),
+    # + pre, mean_mode, std_mode, need_min; mean_in, std_in, mean_out, std_out,
+    # scratch, counters, running; block
+    ("seekr_epilogue_column_stats",
+     [*_BLOCK_ARGS, *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 7, ctypes.c_int,
+      *_DEVICE_STREAM], ctypes.c_int),
+    # + pre, post; mean, std, shift
+    ("seekr_epilogue_normalize",
+     [*_BLOCK_ARGS, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 3, *_DEVICE_STREAM],
+     ctypes.c_int),
+    # + first; row_s, row_q
+    ("seekr_epilogue_row_stats",
+     [*_BLOCK_ARGS, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, *_DEVICE_STREAM],
+     ctypes.c_int),
+    # + row_s, row_q, hi, lo
+    ("seekr_epilogue_standardize_split",
+     [*_BLOCK_ARGS, *[ctypes.c_void_p] * 4, *_DEVICE_STREAM], ctypes.c_int),
 ]
 
 
