@@ -28,7 +28,10 @@ one exception is phase 5, which times each hand-written kernel alone.
    standardization must take the fused route (``ops.normalize.routes``,
    ``ops.pearson.standardize_routes``) with one launch of each epilogue kernel
    (``csrc/epilogue.cu``: column statistics, normalize, row statistics,
-   standardize-split) for the one column block of k = 6;
+   standardize-split) for the one column block of k = 6, and the self Gram one
+   launch of the symmetric GEMM (``csrc/sym_gemm.cu``) over the 5,253 tiles of
+   the upper triangle (``ops.pearson.sym_gemm``); r exactly symmetric, bit for
+   bit;
 4. the same corpus through ``KmerCounter(fasta).get_counts()`` and ``pearson``
    (the blocked path): exactly symmetric, within 1e-4 of phase 3; a FASTA with
    two transcripts past the long-sequence threshold against the numpy oracle;
@@ -46,7 +49,12 @@ one exception is phase 5, which times each hand-written kernel alone.
    torch chain's launches it replaces, and its largest difference from the
    twin, absolute and in float32 ulp: the statistics within one ulp, the
    shift and each element bitwise given the kernel's statistics, else the
-   run fails;
+   run fails; and the symmetric GEMM alone at the same two shapes (the k = 9
+   block a middle one, adding into r): its time, its bound (its three TF32
+   products over the upper triangle at the TF32 peak), its twin's time, and the
+   cuBLAS composition it replaced (``hi lo^T``, ``X + X^T``, eight 512-column
+   ``addmm_``, the divide; at the k = 9 block that block's ``addmm_``), r exactly
+   symmetric and within 1e-5 of float64, else the run fails;
 6. the statistics chain at k = 4 on the same corpus, in a temporary working
    directory: ``find_dist`` (a 100,000-value background sample),
    ``fit_distributions`` (norm, expon, rayleigh, uniform), ``find_pval`` for
@@ -232,6 +240,10 @@ EPILOGUE_REPLACES = "none: seekr_tpu's normalize and Pearson are XLA; added for 
 # reads it and writes both TF32 halves
 EPILOGUE_BYTES = {"epilogue_column_stats": 4, "epilogue_normalize": 8,
                   "epilogue_row_stats": 4, "epilogue_standardize_split": 12}
+SYM_GEMM = "sym_split_gemm"
+SYM_GEMM_SOURCE = "seekr_tpu_torch/csrc/sym_gemm.cu"
+SYM_GEMM_REPLACES = "none: seekr_tpu's Pearson Gram is XLA; added for the H100"
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet)
 DIGIT2CHAR = np.frombuffer(b"AGTCN", dtype=np.uint8)
 
 
@@ -502,17 +514,24 @@ def record_err(state, name, err):
     errs[name] = max(errs.get(name, 0.0), float(err))
 
 
+def reset_sym_gemm():
+    from seekr_tpu_torch.ops import sym_gemm_cuda
+
+    sym_gemm_cuda.counts.update(dict.fromkeys(sym_gemm_cuda.counts, 0))
+
+
 def reset_launches():
     """Set every kernel's launch count to 0 (a main-path section starts)."""
     from seekr_tpu_torch.ops import count_cuda, epilogue_cuda
 
     count_cuda.reset_launches()
     epilogue_cuda.reset_launches()
+    reset_sym_gemm()
 
 
 def read_launches(state, phase):
     """Add the launches made since the last reset to the main-path counts."""
-    from seekr_tpu_torch.ops import count_cuda, epilogue_cuda
+    from seekr_tpu_torch.ops import count_cuda, epilogue_cuda, sym_gemm_cuda
 
     main = state.setdefault("launches", dict.fromkeys(count_cuda.KERNELS, 0))
     for name, n in count_cuda.launches.items():
@@ -520,9 +539,11 @@ def read_launches(state, phase):
     epilogue = state.setdefault("epilogue_launches", dict.fromkeys(epilogue_cuda.KERNELS, 0))
     for name, n in epilogue_cuda.launches.items():
         epilogue[name] += n
+    state[SYM_GEMM] = state.get(SYM_GEMM, 0) + sym_gemm_cuda.counts["launches"]
     log(f"{phase}: kernel launches {dict(count_cuda.launches)} "
-        f"{dict(epilogue_cuda.launches)}")
+        f"{dict(epilogue_cuda.launches)} {SYM_GEMM} {dict(sym_gemm_cuda.counts)}")
     epilogue_cuda.reset_launches()  # sections the count kernels' resets miss stay out
+    reset_sym_gemm()
 
 
 def f64_reference(raw, ncols):
@@ -547,6 +568,7 @@ def phase_pipeline(device, scale, state):
     from seekr_tpu_torch.ops import epilogue_cuda
     from seekr_tpu_torch.ops import normalize as normalize_ops
     from seekr_tpu_torch.ops import pearson as pearson_ops
+    from seekr_tpu_torch.ops import sym_gemm_cuda
     from seekr_tpu_torch.ops.count import count_graph
 
     bases, lengths = make_corpus(scale.corpus_m, scale.corpus_cap, state["seed"])
@@ -569,20 +591,28 @@ def phase_pipeline(device, scale, state):
     routes = [taken(c, b) for c, b in zip((pearson_ops.gram_routes, normalize_ops.routes,
                                            pearson_ops.standardize_routes), before)]
     epilogue = dict(epilogue_cuda.launches)
+    sym = dict(sym_gemm_cuda.counts)
     read_launches(state, "pipeline")
 
     out = {"phase": "pipeline", "m": m, "k": PIPELINE_K, "self_gram_route": routes[0],
            "normalize_route": routes[1], "standardize_route": routes[2],
-           "epilogue_launches": epilogue}
-    # one column block at k = 6: one launch of each epilogue kernel on a card
-    want = ((["fused"], ["fused"], dict.fromkeys(epilogue_cuda.KERNELS, 1)) if is_cuda(device)
-            else (["torch"], ["torch"], dict.fromkeys(epilogue_cuda.KERNELS, 0)))
-    if (routes[1], routes[2], epilogue) != want:
-        raise AssertionError(f"the forward's epilogue: routes {routes[1]}, {routes[2]} and "
-                             f"launches {epilogue}, where {want} was due")
+           "epilogue_launches": epilogue, "sym_gemm": sym}
+    # one column block at k = 6: one launch of each epilogue kernel on a card, and
+    # one of the symmetric GEMM over the upper triangle's tiles
+    want = ((["fused"], ["fused"], dict.fromkeys(epilogue_cuda.KERNELS, 1),
+             {"launches": 1, "tiles": sym_gemm_cuda.tiles_of(m)}) if is_cuda(device)
+            else (["torch"], ["torch"], dict.fromkeys(epilogue_cuda.KERNELS, 0),
+                  {"launches": 0, "tiles": 0}))
+    if (routes[1], routes[2], epilogue, sym) != want:
+        raise AssertionError(f"the forward's epilogue and Gram: routes {routes[1]}, {routes[2]}, "
+                             f"launches {epilogue} and {sym}, where {want} was due")
     if sim.shape != (m, m) or not bool(torch.isfinite(sim).all()):
         raise AssertionError(f"pipeline output: shape {tuple(sim.shape)}, "
                              f"finite {bool(torch.isfinite(sim).all())}")
+    bits = sim.view(torch.int32)
+    out["symmetric"] = bool(torch.equal(bits, bits.T))
+    if is_cuda(device) and not out["symmetric"]:  # the CPU's float32 product promises no mirror
+        raise AssertionError("the forward's r is not exactly symmetric")
     raw = count_graph(bt, nt, PIPELINE_K)
     ref = f64_reference(raw, raw.shape[1])
     err = (sim.to(torch.float64) - ref).abs().max().item()
@@ -751,7 +781,8 @@ def phase_timing(device, scale, state):
             f"{[tuple(b.shape) for b, _ in inputs]}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({nbytes} bytes at 3.35 TB/s), plain {plain_ms:.3f} ms, "
             f"bincount yardstick {library_ms:.3f} ms")
-    state["kernels"] = rows + epilogue_timing(device, scale, state)
+    state["kernels"] = rows + epilogue_timing(device, scale, state) + [
+        sym_gemm_timing(device, scale, state)]
 
 
 def _gap(a, b) -> tuple:
@@ -910,6 +941,124 @@ def epilogue_timing(device, scale, state) -> list:
             f"({k6['bound_ms'] / k6['ms']:.1%}), plain {k6['plain_ms']:.3f} ms, torch chain "
             f"{k6['library_ms']:.3f} ms; k = 9 block {json.dumps(found[name]['k9_block'])}")
     return rows
+
+
+def cublas_composition(hi, lo, n, out=None, x=None):
+    """The cuBLAS products the symmetric GEMM replaced.  A whole Gram (``out``
+    None): ``X = hi lo^T``, ``X + X^T``, eight 512-column ``addmm_`` of
+    ``hi hi^T``, the divide.  One middle block of many: ``x.addmm_(hi, lo^T)``
+    and the eight ``out.addmm_``."""
+    from seekr_tpu_torch.ops.pearson import divide
+    from seekr_tpu_torch.ops.precision import pearson_precision
+
+    whole = out is None
+    with pearson_precision(tf32=True):
+        if whole:
+            x = hi @ lo.T
+            out = x + x.T
+        else:
+            x.addmm_(hi, lo.T)
+        for c in range(0, hi.shape[1], 512):
+            out.addmm_(hi[:, c:c + 512], hi[:, c:c + 512].T)
+    return divide(out, n) if whole else out
+
+
+def sym_gemm_timing(device, scale, state) -> dict:
+    """The symmetric GEMM alone on the forward's operand: the k = 6 forward's
+    [m, 4,096] (one block, first and last) and the first 4,096-column block of
+    the k = 9 buffer as a middle block (r read and written, nothing divided).
+
+    ``bound_ms``: its three TF32 products over the upper triangle with its
+    diagonal (3 * 2 * w * m (m + 1) / 2 operations) at the TF32 peak;
+    ``plain_ms`` its twin (float32 products over the whole square);
+    ``library_ms`` the cuBLAS composition it replaced (``cublas_composition``).
+    Raises unless r is exactly symmetric, NaN where float64 is, and within 1e-5
+    of float64 of the halves' Gram (``max_abs_err``); the k = 9 block is checked
+    a second time as the last block, added into the middle block's r and divided
+    by twice its width.  The timing loops' calls are not counted.
+    """
+    import torch
+
+    from seekr_tpu_torch.models.pipeline import SeekrPipeline
+    from seekr_tpu_torch.ops import pearson as P
+    from seekr_tpu_torch.ops import sym_gemm_cuda as S
+
+    bases, lengths = state["corpus"]
+    bt, nt = torch.as_tensor(bases, device=device), torch.as_tensor(lengths, device=device)
+    found = {}
+    for label, k in (("k6", PIPELINE_K), ("k9_block", LARGE_K)):
+        counts = SeekrPipeline(k=k, log2="Log2.post", device=device).counts(bt, nt)[0]
+        a = P._row_standardize(counts[:, :4096].contiguous())
+        del counts
+        m, w = a.shape
+        first_last = label == "k6"
+        hi, lo = P.split_tf32(a)
+        r = torch.zeros((m, m), device=device)
+        twin = torch.zeros((m, m), device=device)
+
+        def kernel():
+            return S.sym_split_gemm(hi, lo, r, first_last, first_last, w)
+
+        def plain():
+            return S.sym_split_gemm_plain(hi, lo, twin, first_last, first_last, w)
+
+        kernel()
+        a64 = hi.double() + lo.double()
+        want = (a64 @ a64.T) / w
+        del a64
+        got = r.double() if first_last else r.double() / w  # a middle block divides nothing
+        sync(device)
+        bits = r.view(torch.int32)
+        if first_last and not torch.equal(bits, bits.T):
+            raise AssertionError(f"{SYM_GEMM} at {label}: r is not exactly symmetric")
+        # before the last block only the upper triangle is r's
+        check = torch.ones((m, m), dtype=torch.bool, device=device)
+        if not first_last:
+            check.triu_()
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got)[check], nan[check]):
+            raise AssertionError(f"{SYM_GEMM} at {label}: NaN where float64 has none, or none "
+                                 f"where it has")
+        err = float((got - want)[check & ~nan].abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"{SYM_GEMM} at {label}: {err} from float64")
+        last = {}
+        if not first_last:
+            # the same block again as the last of two, adding into r: r = 2 G / 2 w
+            S.sym_split_gemm(hi, lo, r, False, True, 2 * w)
+            sync(device)
+            bits = r.view(torch.int32)
+            last_err = float((r.double() - want)[~nan].abs().max())
+            if not (torch.equal(bits, bits.T) and torch.equal(torch.isnan(r), nan)
+                    and last_err <= 1e-5):
+                raise AssertionError(f"{SYM_GEMM} at {label} as the last block: symmetric "
+                                     f"{torch.equal(bits, bits.T)}, {last_err} from float64")
+            last["last_block_max_abs_err"] = last_err
+        del want, got, nan, check
+        if first_last:
+            library = lambda: cublas_composition(hi, lo, w)  # noqa: E731
+        else:
+            out, x = torch.zeros((m, m), device=device), torch.zeros((m, m), device=device)
+            library = lambda: cublas_composition(hi, lo, w, out, x)  # noqa: E731
+        found[label] = {
+            "ms": cuda_ms(kernel, scale.reps), "plain_ms": cuda_ms(plain, scale.reps),
+            "library_ms": cuda_ms(library, scale.reps),
+            "bound_ms": 3 * 2 * w * (m * (m + 1) // 2) / TF32_FLOPS_PER_S * 1e3,
+            "max_abs_err": err, **last}
+        del a, hi, lo, r, twin
+        if not first_last:
+            del out, x
+        torch.cuda.empty_cache()
+    reset_sym_gemm()
+    k6 = found["k6"]
+    log(f"{SYM_GEMM}: k = 6 {k6['ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
+        f"({k6['bound_ms'] / k6['ms']:.1%}), plain {k6['plain_ms']:.3f} ms, cuBLAS composition "
+        f"{k6['library_ms']:.3f} ms; k = 9 block {json.dumps(found['k9_block'])}")
+    return {"name": SYM_GEMM, "route": "cuda", "source": SYM_GEMM_SOURCE,
+            "replaces": SYM_GEMM_REPLACES, "launches": state.get(SYM_GEMM, 0),
+            "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+            "bound_ms": k6["bound_ms"], "bound_by": "operations",
+            "library_ms": k6["library_ms"], "k9_block": found["k9_block"]}
 
 
 def hiblocked_detail(inputs, k, scale, device, state):
@@ -3373,8 +3522,8 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     state = run(device, FULL, args.seed)
-    launches = {**state["launches"], **state["epilogue_launches"]}
-    idle = [name for name in (*count_cuda.KERNELS, *epilogue_cuda.KERNELS)
+    launches = {**state["launches"], **state["epilogue_launches"], SYM_GEMM: state[SYM_GEMM]}
+    idle = [name for name in (*count_cuda.KERNELS, *epilogue_cuda.KERNELS, SYM_GEMM)
             if launches[name] == 0]
     if idle:
         raise AssertionError(f"kernels of the main path never launched: {idle}")

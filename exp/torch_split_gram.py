@@ -1,18 +1,19 @@
-"""The forward's self Gram: float32 SGEMM against the split TF32 product.
+"""The forward's self Gram: the symmetric split-TF32 kernel against cuBLAS.
 
-On the ``lnc_vM25_k6`` corpus (``benchmarks/configs``), row-standardized at
-k = 6 (13,000 x 4,096), this reads which kernels cuBLAS launches for each
-product (``torch.profiler``; whether their names match the benchmark's Gram
-pattern ``benchmarks/rooflines/gram.py``), times each part with CUDA events,
-and holds r of each route (split, float32, TF32) to float64, on the diagonal
-and off it.  ``--widths`` sweeps ``ops.pearson.TF32_SUM_COLUMNS`` (the columns
-one product of the large term ``hi hi^T`` sums): the term's time, the split
-Gram's and r's error for each.  With ``--k9`` it then times whole forwards at
-k = 9 under ``highest`` and ``high``, and their peak memory.  Prints one
-``SPLIT {json}`` line.
+On the ``lnc_vM25_k6`` corpus (``benchmarks/configs``), row-standardized at k = 6
+(13,000 x 4,096): the kernels each part launches (``torch.profiler``; whether
+their names match the benchmark's Gram pattern ``benchmarks/rooflines/gram.py``),
+the kernel alone (a first-and-last block, and a middle block of k = 9, which reads
+and writes r) against the cuBLAS composition it replaced
+(``chip_smoke.cublas_composition``), and r of each route (split, float32, TF32)
+against float64, on the diagonal and off it.  With ``--k9`` it then times whole
+forwards at k = 9 under ``highest`` and ``high``, and their peak memory.  Prints
+one ``SPLIT {json}`` line.  The kernel's fold (``kFoldColumns`` in
+``csrc/sym_gemm.cu``, ``ops/sym_gemm_cuda.TF32_SUM_COLUMNS``) is a constant: a
+sweep of it edits both and rebuilds.
 
 Run from the root of the repository on a card:
-``python exp/torch_split_gram.py [--reps 10] [--seed 1] [--widths 4096,1024,512] [--k9]``
+``python exp/torch_split_gram.py [--reps 10] [--seed 1] [--k9]``
 """
 
 from __future__ import annotations
@@ -23,17 +24,20 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "benchmarks")]
 
 import torch
 
+from chip_smoke import cublas_composition
 from kbench import corpus
 from rooflines import gram as gram_roofline
 from seekr_tpu_torch import SeekrPipeline
 from seekr_tpu_torch.ops import pearson as P
-from seekr_tpu_torch.ops.precision import pearson_precision
+from seekr_tpu_torch.ops import sym_gemm_cuda as S
+from seekr_tpu_torch.utils import build
 
 
 def cuda_ms(fn, reps):
@@ -76,17 +80,29 @@ def with_precision(value, fn):
             os.environ["SEEKR_TPU_MATMUL_PRECISION"] = saved
 
 
+def symmetric(r):
+    """r equal to its transpose bit for bit, NaN included."""
+    bits = r.view(torch.int32)
+    return bool(torch.equal(bits, bits.T))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--widths", default="")
     ap.add_argument("--k9", action="store_true")
     args = ap.parse_args()
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     out = {"torch": torch.__version__, "cuda": torch.version.cuda, "card": smi}
+    start = time.perf_counter()
+    build.load_library()
+    out["build_s"] = time.perf_counter() - start
+    out["ptxas"] = [line for line in build.build_log().splitlines()
+                    if "sym_split" in line or "registers" in line or "spill" in line][-12:]
+    print("BUILD " + json.dumps(out), flush=True)
+
     with open(os.path.join(ROOT, "benchmarks/configs/lnc_vM25_k6.json")) as fh:
         cfg = json.load(fh)
     bases, lengths = corpus.make_corpus(cfg["transcripts"], cfg,
@@ -95,21 +111,18 @@ def main() -> None:
     a = P._row_standardize(pipe.counts(bases, lengths)[0])
     m, n = a.shape
     hi, lo = P.split_tf32(a)
-    x = hi @ lo.T
+    r = torch.empty((m, m), device=device)
 
-    def tf32(fn):
-        def run():
-            with pearson_precision(tf32=True):
-                return fn()
-        return run
+    def kernel(first=True, last=True):
+        return S.sym_split_gemm(hi, lo, r, first, last, n)
 
     parts = {
+        "kernel": kernel,
+        "kernel_middle_block": lambda: kernel(False, False),
+        "composition": lambda: cublas_composition(hi, lo, n),
         "fp32_gram": lambda: P.gram(a, a),
-        "tf32_mm": tf32(lambda: hi @ lo.T),
-        "tf32_addmm": tf32(lambda: x.addmm_(hi, hi.T)),
         "split_tf32": lambda: P.split_tf32(a),
-        "x_plus_xt": lambda: x + x.T,
-        "split_gram": lambda: P.split_gram(a),
+        "split_gram": lambda: P.split_gram(a, n),
     }
     pattern = re.compile(gram_roofline.KERNEL)
     out["kernels"] = {}
@@ -119,43 +132,31 @@ def main() -> None:
         out["kernels"][name + "_gram_pattern_ms"] = round(
             sum(v for k, v in ks.items() if pattern.search(k)), 4)
     out["ms"] = {name: cuda_ms(fn, args.reps) for name, fn in parts.items()}
-    flop = 2.0 * m * m * n
-    out["tflop_per_s"] = {name: flop / (out["ms"][name] / 1e3) / 1e12
-                          for name in ("fp32_gram", "tf32_mm", "tf32_addmm")}
-    del x, hi, lo
+    triangle = 3 * 2.0 * n * (m * (m + 1) / 2)
+    out["kernel_tflop_per_s"] = triangle / (out["ms"]["kernel"] / 1e3) / 1e12
+    out["kernel_bound_ms"] = triangle / 494.7e12 * 1e3
+    out["gram_roofline_alone"] = 100 * (2.0 * m * m * n / 494.7e12 * 1e3) / out["ms"]["kernel"]
+    print("TIMES " + json.dumps(out["ms"]), flush=True)
 
     a64 = a.double()
     want = (a64 @ a64.T) / n
     del a64
     diag = torch.eye(m, dtype=torch.bool, device=device)
 
-    def err(r):
-        e = (r.double() - want).abs()
+    def err(got):
+        e = (got.double() - want).abs()
         return {"r_max_abs_err": e.max().item(), "diagonal": e[diag].max().item(),
-                "off_diagonal": e[~diag].max().item()}
+                "off_diagonal": e[~diag].max().item(), "symmetric": symmetric(got)}
 
-    errs = {}
+    errs = {"composition": err(cublas_composition(hi, lo, n))}
     for route, value in (("split", "high"), ("fp32", "highest"), ("tf32", "default")):
         before = dict(P.gram_routes)
-        errs[route] = err(with_precision(value, lambda: P.divide(P.self_gram(a), n)))
+        errs[route] = err(with_precision(value, lambda: P.self_gram(a, n)))
         errs[route]["route_counted"] = [k for k in P.gram_routes
                                         if P.gram_routes[k] != before[k]]
     out["vs_f64"] = errs
-    if args.widths:
-        hi = P.split_tf32(a)[0]
-        sweep, saved = {}, P.TF32_SUM_COLUMNS
-        for w in (int(v) for v in args.widths.split(",")):
-            P.TF32_SUM_COLUMNS = w
-            with pearson_precision(tf32=True):
-                hh_ms = cuda_ms(lambda: P._add_hi_hi(None, hi), args.reps)
-                names = sorted(kernels(lambda: P._add_hi_hi(None, hi)))
-            sweep[w] = {"hi_hi_ms": hh_ms, "split_gram_ms": cuda_ms(lambda: P.split_gram(a),
-                                                                     args.reps),
-                        "kernels": names, **err(P.divide(P.split_gram(a), n))}
-        P.TF32_SUM_COLUMNS = saved
-        out["widths"] = sweep
-        del hi
-    del want, a, diag
+    print("ERRS " + json.dumps(errs), flush=True)
+    del want, a, diag, hi, lo, r
 
     def forward_ms(value):
         return with_precision(value, lambda: cuda_ms(lambda: pipe.forward(bases, lengths),
@@ -174,6 +175,7 @@ def main() -> None:
         ks = with_precision("high", lambda: kernels(lambda: pipe.forward(bases, lengths)))
         out["k9_forward_kernels_top"] = dict(sorted(ks.items(), key=lambda kv: -kv[1])[:8])
     out["gram_routes"] = dict(P.gram_routes)
+    out["sym_gemm"] = dict(P.sym_gemm)
     print("SPLIT " + json.dumps(out), flush=True)
 
 

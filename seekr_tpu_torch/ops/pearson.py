@@ -10,8 +10,10 @@ The self Gram of ``pearson_graph`` on a card is, under the default precision
 (``ops/precision.py``), a split-precision product on the tensor cores, the
 counterpart of seekr_tpu's bf16x3 ``HIGH``: the operand is split into TF32
 halves ``a = hi + lo`` (``split_tf32``) and ``a @ a.T`` is taken as
-``hi @ hi.T + X + X.T`` with ``X = hi @ lo.T``, in TF32 products
-(``split_gram``).  ``gram_routes`` counts the self Grams by route.  On that
+``hi @ hi.T + hi @ lo.T + lo @ hi.T`` in TF32 products over the upper triangle
+only, by a hand-written symmetric GEMM that writes r once, divided and mirrored
+(``split_gram``, ``ops/sym_gemm_cuda.py``; ``sym_gemm`` counts its launches and
+tiles).  ``gram_routes`` counts the self Grams by route.  On that
 route the row standardization and the split are fused where the kernels take
 the buffer (``ops/epilogue_cuda.py``): each row's moments in float64 (one read),
 then each column block standardized and split straight into the Gram's TF32
@@ -38,7 +40,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from seekr_tpu_torch.ops import epilogue_cuda
+from seekr_tpu_torch.ops import epilogue_cuda, sym_gemm_cuda
 from seekr_tpu_torch.ops.precision import matmul_precision, pearson_precision
 from seekr_tpu_torch.utils.device import resolve_device
 from seekr_tpu_torch.utils.profiler import span
@@ -104,6 +106,7 @@ GEMM_CHUNK = 4096
 column_blocks = {"standardize": 0, "gram": 0}
 gram_routes = {"split": 0, "fp32": 0, "tf32": 0}
 standardize_routes = {"fused": 0, "torch": 0}
+sym_gemm = sym_gemm_cuda.counts  # launches of the symmetric GEMM, and their tiles
 
 # float32 keeps 13 mantissa bits more than TF32's 10: adding half of the lowest
 # kept bit and clearing the 13 rounds to nearest, ties away from zero (PTX's
@@ -111,16 +114,6 @@ standardize_routes = {"fused": 0, "torch": 0}
 TF32_HALF_ULP = 1 << 12
 TF32_MASK = -(1 << 13)
 TF32_MAX = (2 - 2 ** -10) * 2.0 ** 127
-
-# Columns one TF32 product of the split Gram's large term ``hi hi^T`` sums
-# before its total is added to the rest in float32 (``addmm_``).  The tensor
-# cores' float32 sums are not rounded to nearest: on sums of one sign (the
-# diagonal, r near 1) their error grows in proportion to this width (and 10x
-# less off the diagonal, where terms cancel): on the H100, over the
-# 13,000 x 4,096 operand of the k = 6 forward, r's largest error from float64
-# was 2.9e-5 at 4,096 columns (outside the 2.5e-5 check), 7.5e-6 at 1,024 and
-# 3.6e-6 at 512 (float32's SGEMM 3.8e-6), at 3.2, 4.7 and 6.0 ms for the term.
-TF32_SUM_COLUMNS = 512
 
 
 def blocks_of(n_cols: int) -> list:
@@ -171,25 +164,16 @@ def split_tf32(a: torch.Tensor, hi: torch.Tensor | None = None,
     return hi, round_to_tf32(a - hi, out=lo)
 
 
-def _add_hi_hi(out: torch.Tensor | None, hi: torch.Tensor) -> torch.Tensor:
-    """``out + hi @ hi.T`` (``out`` None: 0), ``TF32_SUM_COLUMNS`` columns a product."""
-    for c in range(0, hi.shape[1], TF32_SUM_COLUMNS):
-        part = hi[:, c:c + TF32_SUM_COLUMNS]
-        out = part @ part.T if out is None else out.addmm_(part, part.T)
-    return out
-
-
-def split_gram(a: torch.Tensor, halves=None) -> torch.Tensor:
-    """``a @ a.T`` as TF32 products on the tensor cores, fp32's error class.
+def split_gram(a: torch.Tensor, n: int, halves=None) -> torch.Tensor:
+    """``a @ a.T / n`` from TF32 products on the tensor cores, fp32's error class.
 
     With ``a = hi + lo`` (``split_tf32``), ``a a^T = hi hi^T + hi lo^T + lo hi^T
     + lo lo^T``; every TF32 x TF32 product is exact in float32, and only
-    ``lo lo^T`` (2^-22 of the whole) is dropped.  The two cross terms are
-    ``X + X^T`` with ``X = hi lo^T``, so the Gram is ``X + X^T`` (out of place)
-    plus ``hi hi^T`` (``addmm_``, beta 1), the latter ``TF32_SUM_COLUMNS``
-    columns a product.  Past ``GEMM_CHUNK`` columns each piece is split into
-    the same scratch, and ``X`` and the ``hi hi^T`` sum gather every piece's
-    products; ``X + X^T`` is added once at the end.
+    ``lo lo^T`` (2^-22 of the whole) is dropped.  Each ``GEMM_CHUNK``-column
+    piece is split into one scratch pair, and the symmetric GEMM
+    (``sym_gemm_cuda.sym_split_gemm``) adds its three products over the upper
+    triangle into r, ``sym_gemm_cuda.TF32_SUM_COLUMNS`` columns a float32 add;
+    the last piece divides by ``n`` and mirrors, so r is exactly symmetric.
 
     ``halves(cols, hi, lo)`` writes the halves of the columns ``cols`` into the
     scratch ``hi`` and ``lo`` and returns them: by default ``split_tf32`` of
@@ -199,22 +183,25 @@ def split_gram(a: torch.Tensor, halves=None) -> torch.Tensor:
     if halves is None:
         def halves(cols, hi, lo):
             return split_tf32(a[:, cols], hi, lo)
+    m = a.shape[0]
     blocks = blocks_of(a.shape[1])
     column_blocks["gram"] += len(blocks)
-    with span("pearson.gram"), pearson_precision(tf32=True):
-        hi = lo = x = out = None
-        for cols in blocks:
+    out = torch.empty((m, m), dtype=torch.float32, device=a.device)
+    if m == 0:
+        return out
+    with span("pearson.gram"):
+        hi = lo = None
+        for index, cols in enumerate(blocks):
             width = len(range(a.shape[1])[cols])
             if hi is None or hi.shape[1] != width:  # one scratch pair a width
-                hi, lo = (torch.empty((a.shape[0], width), dtype=a.dtype, device=a.device)
-                          for _ in range(2))
+                # rows a multiple of 16 bytes apart, as the kernel's loads take them
+                pitch = -(-width // 4) * 4
+                hi, lo = (torch.empty((m, pitch), dtype=torch.float32,
+                                      device=a.device)[:, :width] for _ in range(2))
             hi, lo = halves(cols, hi, lo)
-            if len(blocks) == 1:
-                x = hi @ lo.T
-                return _add_hi_hi(x + x.T, hi)
-            x = hi @ lo.T if x is None else x.addmm_(hi, lo.T)
-            out = _add_hi_hi(out, hi)
-        return out.add_(x).add_(x.T)
+            sym_gemm_cuda.sym_split_gemm(hi, lo, out, first=index == 0,
+                                         last=index == len(blocks) - 1, n=n)
+        return out
 
 
 def gram_route(a: torch.Tensor) -> str:
@@ -227,12 +214,15 @@ def gram_route(a: torch.Tensor) -> str:
     return "split" if precision == "high" and a.is_cuda else "fp32"
 
 
-def self_gram(a: torch.Tensor) -> torch.Tensor:
-    """``a @ a.T`` of one operand, by the route ``gram_routes`` counts
-    (``gram_route``): ``split_gram``, else ``gram(a, a)`` in float32 or TF32."""
+def self_gram(a: torch.Tensor, n: int) -> torch.Tensor:
+    """``a @ a.T / n`` of one operand, by the route ``gram_routes`` counts
+    (``gram_route``): ``split_gram``, which divides in its last launch, else
+    ``gram(a, a)`` in float32 or TF32, then ``divide``."""
     route = gram_route(a)
     gram_routes[route] += 1
-    return split_gram(a) if route == "split" else gram(a, a)
+    if route == "split":
+        return split_gram(a, n)
+    return divide(gram(a, a), n)
 
 
 def pearson_graph(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
@@ -249,7 +239,7 @@ def pearson_graph(c: torch.Tensor, inplace: bool = False) -> torch.Tensor:
             return fused_pearson(x)
     c = _row_standardize(c, inplace)
     c = c.reshape(c.shape[0], -1)
-    return divide(self_gram(c), c.shape[1])
+    return self_gram(c, c.shape[1])
 
 
 def fused_pearson(x: torch.Tensor, moments=epilogue_cuda.row_moments,
@@ -265,7 +255,7 @@ def fused_pearson(x: torch.Tensor, moments=epilogue_cuda.row_moments,
     standardize_routes["fused"] += 1
     gram_routes["split"] += 1
     halves = partial(halves, x, moments(x, blocks))
-    return divide(split_gram(x, halves), x.shape[1])
+    return split_gram(x, x.shape[1], halves)
 
 
 def pearson_device(counts1, counts2, row_standardize: bool = True,

@@ -65,6 +65,11 @@ _SIGNATURES = [
     # + row_s, row_q, hi, lo
     ("seekr_epilogue_standardize_split",
      [*_BLOCK_ARGS, *[ctypes.c_void_p] * 4, *_DEVICE_STREAM], ctypes.c_int),
+    # hi, lo, ld, r, m, w, plan, tiles, first, last, n
+    ("seekr_sym_split_gemm",
+     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+      ctypes.c_int, ctypes.c_void_p, *[ctypes.c_int] * 3, ctypes.c_float, *_DEVICE_STREAM],
+     ctypes.c_int),
 ]
 
 

@@ -268,11 +268,12 @@ def test_emulated_split_gram_within_its_derived_bound():
 
 @pytest.mark.parametrize("n_cols", [4096, 3 * 4096 + 5])
 def test_split_gram_in_float32_within_the_budget(n_cols):
-    # the split Gram's own arithmetic on the CPU (the products in float32, the
-    # pieces, the narrow last piece): r as close to float64 as the fp32 product
+    # the split Gram's own arithmetic on the CPU (the symmetric GEMM's twin: the
+    # products in float32, the folds, the pieces, the narrow last piece, the divide
+    # of the last launch): r as close to float64 as the fp32 product
     a = standardized(n_cols, 40, n_cols)
     blocks = torch_ops.column_blocks["gram"]
-    got = torch_ops.divide(torch_ops.split_gram(a), n_cols).double()
+    got = torch_ops.split_gram(a, n=n_cols).double()
     assert torch_ops.column_blocks["gram"] == blocks + len(torch_ops.blocks_of(n_cols))
     a64 = a.double()
     exact = (a64 @ a64.T) / n_cols
@@ -288,7 +289,7 @@ def test_split_gram_nan_cells_are_the_fp32_products():
     c[3] = 1.0
     c[8, 5] = np.nan
     a = torch_ops.standardize_rows(c, device="cpu")
-    split = torch_ops.split_gram(a)
+    split = torch_ops.split_gram(a, a.shape[1])
     plain = torch_ops.gram(a, a)
     assert torch.isnan(plain).any()
     assert torch.equal(torch.isnan(split), torch.isnan(plain))
