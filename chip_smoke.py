@@ -70,8 +70,10 @@ one exception is phase 5, which times each hand-written kernel alone.
    the blocked r-matrix; the CLI's artifacts.  And each host path against the
    Python/numpy path the host C++ library replaced (``SEEKR_TPU_HOST_SORT=numpy``,
    the Python parse and writer): the counts, the corrections and the 13 M-cell
-   CSV bytes equal, and the ECDF at the benchmark's pval sizes (all 84.5 M
-   pairs' r as the null, 500 query rows) on the card bitwise the host's;
+   CSV bytes equal, BH on the card (``multipletests`` and ``adj_pval``'s
+   default there) the same bytes as both host routes, and the ECDF at the
+   benchmark's pval sizes (all 84.5 M pairs' r as the null, 500 query rows) on
+   the card bitwise the host's;
 7. the warm-resident service (``serve.SeekrService``) at seekr_tpu's serving
    benchmark size (``bench.py:410-475``): the corpus as 13,000 targets at k = 6,
    Log2.post, the width padded to 13,056 rows, the norm vectors and a
@@ -1123,8 +1125,9 @@ def near_background(r, background, tol=1e-5, count=False):
 def host_paths_agree(device, scale, seqs, p_emp) -> dict:
     """Each host path the C++ library took over against the Python/numpy path it
     replaced, at the main path's sizes (in phase 6's working directory): the
-    counts, the corrections and the p-value CSV's bytes equal; and the pval
-    cell's ECDF on the device bitwise the host's."""
+    counts, the corrections and the p-value CSV's bytes equal; BH on the card
+    the same bytes as both, ``fdr_routes["device"]`` showing it ran there; and
+    the pval cell's ECDF on the device bitwise the host's."""
     import torch
 
     from seekr_tpu_torch.io.fast_csv import labeled_csv_bytes, write_labeled_csv
@@ -1133,7 +1136,7 @@ def host_paths_agree(device, scale, seqs, p_emp) -> dict:
     from seekr_tpu_torch.ops.ecdf import DeviceSortedBackground, SortedBackground
     from seekr_tpu_torch.stats import adj_pval
     from seekr_tpu_torch.stats.find_dist import similarity_triu
-    from seekr_tpu_torch.stats.multitest import multipletests
+    from seekr_tpu_torch.stats.multitest import _NATIVE_SORT_MIN, fdr_routes, multipletests
 
     counts = KmerCounter("corpus.fa", k=STATS_K, silent=True, device=device).get_counts_device()
     with python_host_paths():
@@ -1154,14 +1157,27 @@ def host_paths_agree(device, scale, seqs, p_emp) -> dict:
     if not out["ecdf_cell_device_bitwise_host"]:
         raise AssertionError("the device ECDF differs from the host's at the pval cell's sizes")
     del triu, host_p, device_p
-    native_mt = multipletests(p_emp.values, method="fdr_bh")
-    native_adj = adj_pval(p_emp, "fdr_bh").values
+    # BH on the card (the default where there is one, past the host sort's
+    # threshold), in the C++ library and in numpy: the same bytes
+    routes = dict(fdr_routes)
+    device_mt = multipletests(p_emp.values, method="fdr_bh")
+    device_adj = adj_pval(p_emp, "fdr_bh").values
+    on_card = torch.device(device).type == "cuda" and p_emp.values.size >= _NATIVE_SORT_MIN
+    if fdr_routes["device"] != routes["device"] + 2 * on_card:
+        raise AssertionError(f"phase 6 BH: the card's route was {'not ' * on_card}taken: "
+                             f"{routes} -> {fdr_routes}")
+    native_mt = multipletests(p_emp.values, method="fdr_bh", device="cpu")
+    native_adj = adj_pval(p_emp, "fdr_bh", device="cpu").values
     with python_host_paths():
-        numpy_mt = multipletests(p_emp.values, method="fdr_bh")
-        numpy_adj = adj_pval(p_emp, "fdr_bh").values
+        numpy_mt = multipletests(p_emp.values, method="fdr_bh", device="cpu")
+        numpy_adj = adj_pval(p_emp, "fdr_bh", device="cpu").values
+    out["fdr_routes"] = dict(fdr_routes)
     same = {"multipletests_bitwise_numpy": all(
                 a.tobytes() == b.tobytes() for a, b in zip(native_mt[:2], numpy_mt[:2])),
-            "adj_pval_bitwise_numpy": native_adj.tobytes() == numpy_adj.tobytes()}
+            "adj_pval_bitwise_numpy": native_adj.tobytes() == numpy_adj.tobytes(),
+            "multipletests_device_bitwise_numpy": all(
+                a.tobytes() == b.tobytes() for a, b in zip(device_mt[:2], numpy_mt[:2])),
+            "adj_pval_device_bitwise_numpy": device_adj.tobytes() == numpy_adj.tobytes()}
     write_labeled_csv("pvals.csv", p_emp.values, p_emp.index, p_emp.columns)
     same["pvals_csv_bytes_equal_python"] = (Path("pvals.csv").read_bytes() == labeled_csv_bytes(
         p_emp.values, p_emp.index, p_emp.columns))

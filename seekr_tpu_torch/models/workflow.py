@@ -163,7 +163,7 @@ def run_workflow(seq1file, seq2file=None, background=None, k=6,
     with stage_timer("workflow/pvalues"):
         pvals = np.asarray(empirical_pvals(null_sample, sim), dtype=sim.dtype)
         pval_mat = LabeledMatrix(pvals, headers1, headers2)
-        adj_mat = adj_pval(pval_mat, method=adj_method, alpha=alpha)
+        adj_mat = adj_pval(pval_mat, method=adj_method, alpha=alpha, device=dev)
 
     membership = None
     if leiden:

@@ -62,10 +62,16 @@ def is_symmetric(pvals: LabeledMatrix) -> bool:
     return _tiled_symmetric(pvals.values)
 
 
-def adj_pval(pvals, method, alpha=0.05, outputname=None):
+def adj_pval(pvals, method, alpha=0.05, outputname=None, device=None):
     """Corrected p-values as a float64 ``LabeledMatrix`` with ``pvals``' labels
     (and ``{outputname}.csv`` when asked), or None for an input that is not a
-    labeled matrix."""
+    labeled matrix.
+
+    ``device`` is ``multipletests``' own: ``None`` runs ``fdr_bh``/``fdr_by`` on
+    the first card when there is one and on the host otherwise (this function
+    has always run on the host, so it does not raise without CUDA); ``"cpu"``
+    keeps it on the host.  The bits are the same either way.
+    """
     if not isinstance(pvals, LabeledMatrix):
         print("The input pvals is not a dataframe. Please check the input.")
         return None
@@ -74,12 +80,14 @@ def adj_pval(pvals, method, alpha=0.05, outputname=None):
         print("The input pvals is a symmetric matrix. Only the upper "
               "triangle of the matrix (excluding diagonal) is used for "
               "multiple comparison correction.")
-        adj = multipletests(triu_values(pvals.values), alpha=alpha, method=method)[1]
+        adj = multipletests(triu_values(pvals.values), alpha=alpha, method=method,
+                            device=device)[1]
         out = triu_fill(pvals.shape[0], adj)
     else:
         print("The input pvals is not a symmetric matrix. The total matrix "
               "is used for multiple comparison correction.")
-        adj = multipletests(np.ravel(pvals.values), alpha=alpha, method=method)[1]
+        adj = multipletests(np.ravel(pvals.values), alpha=alpha, method=method,
+                            device=device)[1]
         out = adj.reshape(pvals.shape)
 
     adjusted = LabeledMatrix(out, pvals.index, pvals.columns)
